@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                     # every phase
+    python3 chip_smoke.py                     # every phase, every path
     python3 chip_smoke.py --phases kernels    # build + kernel checks only
+    python3 chip_smoke.py --paths sd15 --log smoke.jsonl   # one path; the
+                                              # JSON lines also go to a file
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
   device    the card (nvidia-smi name and power limit), torch and CUDA
   build     nvcc builds every kernel from the sources in this checkout
   kernels   every kernel against its plain PyTorch version at the shapes
-            the main path gives it, with times from CUDA events
-  model     one full-width SD 2.1 UNet forward and one VAE decode with the
-            kernels against the same modules with the plain versions
-  requests  ElasticDiffusion.generate_image answers two requests at SD 2.1
-            full width with seeded random weights; launch counts are read
-            around exactly this phase
+            the main paths give it, with times from CUDA events
+  model     per bundle, one full-width batch-8 UNet forward and one VAE
+            decode with the kernels against the same modules with the plain
+            versions; for the bundles that run the conv kernel, the forward
+            with conv_impl='kernel' against conv_impl='cudnn'
+  requests  ElasticDiffusion.generate_image answers requests at full width
+            with seeded random weights on three paths, one bundle at a time:
+            SDXL 1.0 and SD 1.5 with conv_impl='kernel', SD 2.1 with the
+            default conv_impl='cudnn'; launch counts are set to 0 just before
+            each path and read just after
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-every kernel with its launches on the main path, error, time and bound.
+every kernel with its launches on the main paths, error, time and bound. A
+run cut to some phases or paths ends in {"ok": false, "partial": ...}.
 Needs a CUDA device and exits non-zero without one.
 """
 
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import statistics
 import subprocess
@@ -40,8 +48,15 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ALL_PHASES = ("device", "build", "kernels", "model", "requests")
 
 
+LOG_PATH = None  # --log: every emitted line is also appended to this file
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LOG_PATH:
+        with open(LOG_PATH, "a") as f:
+            f.write(line + "\n")
 
 
 def fail(msg: str) -> None:
@@ -100,13 +115,20 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
 def attention_cases():
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
-    for S, H in ((4096, 5), (1024, 10), (256, 20)):
-        cases.append(("self", bf, 8, S, S, H, 64))
-        cases.append(("cross", bf, 8, S, 77, H, 64))
+    # SD 2.1 (5/10/20 heads), SDXL (10/20 heads) at D=64; SD 1.5: 8 heads
+    for S, H, D in ((4096, 5, 64), (1024, 10, 64), (256, 20, 64),
+                    (4096, 10, 64), (1024, 20, 64),
+                    (4096, 8, 40), (1024, 8, 80), (256, 8, 160)):
+        cases.append(("self", bf, 8, S, S, H, D))
+        cases.append(("cross", bf, 8, S, 77, H, D))
     cases.append(("vae_mid", bf, 1, 6144, 6144, 1, 512))
     cases.append(("vae_mid", bf, 1, 9216, 9216, 1, 512))
     cases.append(("vae_mid", f32, 1, 4096, 4096, 1, 512))
     cases.append(("vae_strip", f32, 1, 704, 704, 1, 512))
+    # SDXL decodes in fp32 (force_upcast): 1024x1536 px is 128x192 tokens
+    cases.append(("vae_mid", f32, 1, 24576, 24576, 1, 512))
+    for D in (40, 80, 160):  # the fp32 instantiations, on no path today
+        cases.append(("self", f32, 2, 1024, 1024, 8, D))
     return cases
 
 
@@ -155,7 +177,8 @@ def run_layernorm(gen, results):
     from elasticdiffusion_tpu_torch.kernels.layernorm import (
         fused_layer_norm, reference_layer_norm)
     dtype = torch.bfloat16
-    for N, C in ((8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280)):
+    for N, C in ((8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280),
+                 (8 * 4096, 640), (8 * 1024, 1280)):   # the last two: SDXL
         x = (torch.randn(N, C, generator=gen, device="cuda") * 1.5 + 0.3).to(dtype)
         w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
         b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
@@ -186,7 +209,7 @@ def run_groupnorm(gen, results):
         fused_group_norm, reference_group_norm)
     dtype = torch.bfloat16
     shapes = ((8, 64, 64, 320), (8, 32, 32, 1280), (8, 64, 64, 960),
-              (1, 512, 768, 128))
+              (1, 512, 768, 128), (8, 128, 128, 320), (8, 64, 64, 640))
     for B, H, W, C in shapes:
         x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 1.5
              + 0.3).to(dtype)
@@ -224,12 +247,92 @@ def run_groupnorm(gen, results):
         torch.cuda.empty_cache()
 
 
+def conv_cases():
+    """(tag, dtype, B, H, W, C, O, silu, bias dtype or None)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    sdxl = ((128, 320, 320), (128, 960, 320), (128, 640, 320),
+            (64, 320, 640), (64, 640, 640), (64, 1920, 640), (64, 1280, 640),
+            (64, 960, 640), (32, 640, 1280), (32, 1280, 1280),
+            (32, 2560, 1280), (32, 1920, 1280),
+            (64, 1280, 1280), (128, 640, 640))   # the two upsample convs
+    sd15 = ((64, 320, 320), (32, 640, 640), (16, 1280, 1280), (8, 1280, 1280),
+            (16, 2560, 1280), (8, 2560, 1280), (16, 640, 1280),
+            (16, 1920, 1280), (32, 320, 640), (32, 1920, 640),
+            (32, 1280, 640), (32, 960, 640), (64, 960, 320), (64, 640, 320))
+    for tag, shapes in (("sdxl", sdxl), ("sd15", sd15)):
+        for S, C, O in shapes:
+            cases.append((tag, bf, 8, S, S, C, O, False, bf))
+    # view batches of the requests (9 views at 1536x1536, 3 at 1024x1536)
+    cases.append(("sdxl_views", bf, 9, 128, 128, 320, 320, False, bf))
+    cases.append(("sdxl_views", bf, 3, 32, 32, 1280, 1280, False, bf))
+    cases.append(("ragged", bf, 8, 96, 96, 320, 320, False, f32))
+    cases.append(("ragged", bf, 2, 42, 61, 328, 72, False, None))
+    cases.append(("silu", bf, 8, 64, 64, 640, 640, True, bf))
+    cases.append(("fp32", f32, 2, 64, 64, 320, 320, False, f32))
+    cases.append(("fp32_ragged", f32, 1, 21, 37, 136, 72, True, f32))
+    return cases
+
+
+def run_conv3x3(gen, results):
+    import torch.nn.functional as F
+    from elasticdiffusion_tpu_torch.kernels.conv3x3 import (
+        conv3x3, reference_conv3x3)
+    cl = torch.channels_last
+    for tag, dtype, B, H, W, C, O, silu, bias_dtype in conv_cases():
+        # the operands as the module hands them over: the NHWC view of a
+        # channels_last activation, the HWIO view of a channels_last weight
+        x_nchw = torch.randn(B, C, H, W, generator=gen, device="cuda").to(
+            dtype).contiguous(memory_format=cl)
+        w_oihw = (torch.randn(O, C, 3, 3, generator=gen, device="cuda")
+                  / (9 * C) ** 0.5).to(dtype).contiguous(memory_format=cl)
+        bias = None if bias_dtype is None else (0.1 * torch.randn(
+            O, generator=gen, device="cuda")).to(bias_dtype)
+        x, w = x_nchw.permute(0, 2, 3, 1), w_oihw.permute(2, 3, 1, 0)
+        copies = conv3x3.copies
+        out = conv3x3(x, w, bias, silu)
+        torch.cuda.synchronize()
+        if conv3x3.copies != copies:
+            fail(f"conv3x3/{tag}: a channels_last operand was copied")
+        ref = reference_conv3x3(x, w, bias, silu)
+        max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
+        ms = time_ms(lambda: conv3x3(x, w, bias, silu))
+        plain_ms = time_ms(lambda: reference_conv3x3(x, w, bias, silu), 1, 5)
+        lib_bias = None if bias is None else bias.to(dtype)
+        if silu:
+            lib = lambda: F.silu(F.conv2d(x_nchw, w_oihw, lib_bias, padding=1))
+        else:
+            lib = lambda: F.conv2d(x_nchw, w_oihw, lib_bias, padding=1)
+        lib_ms = time_ms(lib)
+        nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size() \
+            + (0 if bias is None else bias.numel() * bias.element_size())
+        ops = 2.0 * 9 * C * O * B * H * W
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        results.append({
+            "name": f"conv3x3/{tag}_{str(dtype)[6:]}_{B}x{H}x{W}x{C}->{O}"
+                    + ("_silu" if silu else ""),
+            "kernel": "conv3x3", "route": "cuda",
+            "source": "elasticdiffusion_tpu_torch/kernels/csrc/conv3x3.cu",
+            "replaces": "elasticdiffusion_tpu/kernels/conv3x3.py:166",
+            "log_key": ("conv3x3", str(dtype), B, H, W, C, O, silu),
+            "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+            "tol_abs": tol_abs, "tol_rel": tol_rel,
+            "tol_why": why + "; both sides sum the 9*C exact products in fp32",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+            "tflops": ops / ms / 1e9,
+            "library": "F.conv2d" + (" + F.silu" if silu else "")})
+        del x_nchw, w_oihw, x, w, out, ref
+        torch.cuda.empty_cache()
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
     run_attention(gen, results)
     run_layernorm(gen, results)
     run_groupnorm(gen, results)
+    run_conv3x3(gen, results)
     bad = [r["name"] for r in results
            if not (r["max_abs_err"] <= r["tol_abs"]
                    and r["rel_l2_err"] <= r["tol_rel"])]
@@ -252,45 +355,87 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def phase_model(bundle):
-    """Kernels against plain versions inside the full-width models."""
+# the three paths of the requests phase: bundle, conv_impl, latent of the
+# batch-8 model check, requests
+PATHS = (
+    {"name": "sdxl", "sd_version": "XL1.0", "conv_impl": "kernel",
+     "latent": 128,
+     "requests": ({"height": 1024, "width": 1536},
+                  {"height": 1536, "width": 1536})},
+    {"name": "sd15", "sd_version": "1.5", "conv_impl": "kernel", "latent": 64,
+     "requests": ({"height": 512, "width": 768},)},
+    {"name": "sd21", "sd_version": "2.1", "conv_impl": "cudnn", "latent": 64,
+     "requests": ({"height": 512, "width": 768},
+                  {"height": 768, "width": 768})},
+)
+
+
+def phase_model(bundle, path):
+    """Kernels against plain versions inside the full-width models, and for
+    a path that runs it, the conv kernel against cuDNN."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     dt = bundle.runtime.compute_dtype
-    lat = torch.randn(8, 4, 64, 64, generator=gen, device="cuda").to(dt)
-    ctx = torch.randn(8, 77, bundle.config.unet.cross_attention_dim,
-                      generator=gen, device="cuda").to(dt)
+    ucfg = bundle.config.unet
+    n = path["latent"]
+    lat = torch.randn(8, 4, n, n, generator=gen, device="cuda").to(dt)
+    ctx = torch.randn(8, 77, ucfg.cross_attention_dim, generator=gen,
+                      device="cuda").to(dt)
+    kw = {}
+    if bundle.config.is_xl:
+        kw = {"added_text_embeds": torch.randn(
+                  8, ucfg.pooled_projection_dim, generator=gen, device="cuda"),
+              "added_time_ids": torch.tensor(
+                  [[4096.0, 6144.0, 0.0, 0.0, 4096.0, 6144.0]],
+                  device="cuda").expand(8, 6)}
     z = torch.randn(1, 4, 64, 96, generator=gen, device="cuda")
-    out = {"phase": "model", "tolerance_rel_l2": 5e-2,
+    out = {"phase": "model", "path": path["name"], "tolerance_rel_l2": 5e-2,
            "tolerance_why": "bf16 activations through the whole network; the "
-                            "kernel and plain norms round at different places"}
+                            "kernel and plain norms, and the conv kernel and "
+                            "cuDNN, round and sum at different places"}
+    unet = lambda: bundle.apply_unet(lat, 501.0, ctx, **kw)
     res = {}
+    bundle.set_conv_impl("cudnn")
     for mode in ("auto", "off"):
         bundle.set_use_kernels(mode)
-        res[mode] = (bundle.apply_unet(lat, 501.0, ctx), bundle.vae_decode(z))
+        res[mode] = (unet(), bundle.vae_decode(z))
         # steady state, after the first call's cuDNN and cuBLAS set-up
-        out[f"unet_ms_{mode}"] = time_ms(
-            lambda: bundle.apply_unet(lat, 501.0, ctx), 1, 5)
+        out[f"unet_ms_{mode}"] = time_ms(unet, 1, 5)
         out[f"decode_ms_{mode}"] = time_ms(lambda: bundle.vae_decode(z), 1, 5)
     bundle.set_use_kernels("auto")
-    for i, name in enumerate(("unet", "vae_decode")):
-        a, b = res["auto"][i], res["off"][i]
+    checks = [("unet", res["auto"][0], res["off"][0]),
+              ("vae_decode", res["auto"][1], res["off"][1])]
+    if path["conv_impl"] == "kernel":
+        bundle.set_conv_impl("kernel")
+        res["conv"] = unet()
+        # the two in turns inside one run: kernel, cudnn, cudnn, kernel
+        t_k1 = time_ms(unet, 1, 5)
+        bundle.set_conv_impl("cudnn")
+        t_c = time_ms(unet, 1, 10)
+        bundle.set_conv_impl("kernel")
+        t_k2 = time_ms(unet, 1, 5)
+        out["unet_ms_conv_kernel"] = [t_k1, t_k2]
+        out["unet_ms_conv_cudnn"] = t_c
+        checks.append(("unet_conv_kernel", res["conv"], res["auto"][0]))
+    bundle.set_conv_impl(path["conv_impl"])
+    for name, a, b in checks:
         if not torch.isfinite(a.float()).all():
-            fail(f"{name} output with kernels is not finite")
+            fail(f"{path['name']} {name}: output with kernels is not finite")
         out[f"{name}_shape"] = list(a.shape)
         out[f"{name}_rel_l2"] = rel_l2(a, b)
     emit(out)
-    for name in ("unet", "vae_decode"):
+    for name, _, _ in checks:
         if not out[f"{name}_rel_l2"] <= out["tolerance_rel_l2"]:
-            fail(f"{name}: kernels against plain versions rel L2 "
-                 f"{out[f'{name}_rel_l2']} over {out['tolerance_rel_l2']}")
+            fail(f"{path['name']} {name}: rel L2 {out[f'{name}_rel_l2']} over "
+                 f"{out['tolerance_rel_l2']}")
 
 
 def kernel_counts():
+    from elasticdiffusion_tpu_torch.kernels.conv3x3 import conv3x3
     from elasticdiffusion_tpu_torch.kernels.flash_attention import flash_attention
     from elasticdiffusion_tpu_torch.kernels.groupnorm import fused_group_norm
     from elasticdiffusion_tpu_torch.kernels.layernorm import fused_layer_norm
     return {"flash_attention": flash_attention, "fused_layer_norm": fused_layer_norm,
-            "fused_group_norm": fused_group_norm}
+            "fused_group_norm": fused_group_norm, "conv3x3": conv3x3}
 
 
 def plain_cuda_counts():
@@ -301,20 +446,36 @@ def plain_cuda_counts():
             "group_norm": group_norm}
 
 
-def phase_requests(pipe, steps: int, resampling: int):
-    """The main path. Every launch count is set to 0 just before and read
+def gate_convs(unet):
+    """The UNet's Conv3x3 modules whose widths are inside the kernel's gate."""
+    from elasticdiffusion_tpu_torch.kernels.conv3x3 import in_gate
+    from elasticdiffusion_tpu_torch.models.layers import Conv3x3
+    return [m for m in unet.modules() if isinstance(m, Conv3x3)
+            and in_gate((1, 8, 8, m.in_channels),
+                        (3, 3, m.in_channels, m.out_channels))]
+
+
+def phase_requests(pipe, path, steps: int, resampling: int):
+    """One main path. Every launch count is set to 0 just before and read
     just after; comparison launches of the other phases do not count."""
     import elasticdiffusion_tpu_torch.kernels as kernels
     wrappers, plain = kernel_counts(), plain_cuda_counts()
+    conv_on = path["conv_impl"] == "kernel"
+    convs = gate_convs(pipe.bundle.unet)
     for w in wrappers.values():
         w.launches = 0
+    wrappers["conv3x3"].copies = 0
     for d in plain.values():
         d.plain_cuda_calls = 0
+    for m in convs:
+        m.library_cuda_calls = 0
+    unet_calls = [0]
+    hook = pipe.bundle.unet.register_forward_hook(
+        lambda *a: unet_calls.__setitem__(0, unet_calls[0] + 1))
     kernels.launch_log = collections.Counter()
 
-    requests = [{"height": 512, "width": 768}, {"height": 768, "width": 768}]
     answers = []
-    for i, req in enumerate(requests):
+    for i, req in enumerate(path["requests"]):
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.reset_peak_memory_stats()
         pipe.seed_everything(i)
@@ -336,22 +497,40 @@ def phase_requests(pipe, steps: int, resampling: int):
                         "max_memory_allocated": torch.cuda.max_memory_allocated(),
                         "last_metrics": pipe.last_metrics})
         if not ok_shape:
-            fail(f"request {req}: image shape {tuple(imgs.shape)}")
+            fail(f"{path['name']} {req}: image shape {tuple(imgs.shape)}")
         if not finite or lo < 0.0 or hi > 1.0:
-            fail(f"request {req}: image not finite or outside [0, 1]")
+            fail(f"{path['name']} {req}: image not finite or outside [0, 1]")
         if not hi > lo:
-            fail(f"request {req}: image is constant")
-        if not all(n > 0 for n in launched.values()):
-            fail(f"request {req}: a kernel was never launched: {launched}")
+            fail(f"{path['name']} {req}: image is constant")
+        never = [n for n, c in launched.items()
+                 if c == 0 and (conv_on or n != "conv3x3")]
+        if never:
+            fail(f"{path['name']} {req}: never launched: {never}")
+    hook.remove()
     log = kernels.launch_log
     kernels.launch_log = None
     plain_calls = {n: d.plain_cuda_calls for n, d in plain.items()}
-    emit({"phase": "requests", "steps": steps, "resampling_steps": resampling,
+    totals = {n: w.launches for n, w in wrappers.items()}
+    cudnn_in_gate = sum(m.library_cuda_calls for m in convs)
+    expected_conv = len(convs) * unet_calls[0] if conv_on else 0
+    emit({"phase": "requests", "path": path["name"],
+          "sd_version": path["sd_version"], "conv_impl": path["conv_impl"],
+          "steps": steps, "resampling_steps": resampling,
           "answers": answers, "plain_versions_on_cuda": plain_calls,
-          "launches": {n: w.launches for n, w in wrappers.items()}})
+          "launches": totals, "unet_calls": unet_calls[0],
+          "gate_convs_per_unet_call": len(convs),
+          "conv3x3_expected_launches": expected_conv,
+          "conv3x3_operand_copies": wrappers["conv3x3"].copies,
+          "cudnn_calls_in_gate": cudnn_in_gate})
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
-    return log, {n: w.launches for n, w in wrappers.items()}
+    if conv_on and cudnn_in_gate:
+        fail(f"{path['name']}: nn.Conv2d.forward ran {cudnn_in_gate} times "
+             f"inside the conv kernel's gate under conv_impl='kernel'")
+    if totals["conv3x3"] != expected_conv:
+        fail(f"{path['name']}: conv3x3 launched {totals['conv3x3']} times, the "
+             f"code gives {len(convs)} x {unet_calls[0]} = {expected_conv}")
+    return log, totals
 
 
 def main(argv=None) -> int:
@@ -359,12 +538,18 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
+    ap.add_argument("--paths", default=",".join(p["name"] for p in PATHS),
+                    help="comma-separated subset of the main paths")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--resampling-steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log", default=None,
+                    help="also append every JSON line to this file")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's output (registers, spills)")
     opt = ap.parse_args(argv)
+    global LOG_PATH
+    LOG_PATH = opt.log
     phases = [p for p in opt.phases.split(",") if p]
     unknown = [p for p in phases if p not in ALL_PHASES]
     if unknown:
@@ -398,47 +583,64 @@ def main(argv=None) -> int:
 
     cases = phase_kernels() if "kernels" in phases else []
 
-    log, totals = collections.Counter(), {}
+    logs, totals = {}, collections.Counter()
     if "model" in phases or "requests" in phases:
         from elasticdiffusion_tpu_torch.configs import RuntimeConfig
         from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
         from elasticdiffusion_tpu_torch.models.registry import load_bundle
-        t0 = time.time()
-        bundle = load_bundle("2.1", runtime=RuntimeConfig(), seed=opt.seed,
-                             device="cuda")
-        torch.cuda.synchronize()
-        emit({"phase": "load", "sd_version": "2.1", "seconds": time.time() - t0,
-              "memory_allocated": torch.cuda.memory_allocated()})
-        if "model" in phases:
-            with torch.no_grad():
-                phase_model(bundle)
-        if "requests" in phases:
-            pipe = ElasticDiffusion(device="cuda", sd_version="2.1",
-                                    bundle=bundle)
-            log, totals = phase_requests(pipe, opt.steps, opt.resampling_steps)
+        wanted = [p for p in opt.paths.split(",") if p]
+        for path in PATHS:
+            if path["name"] not in wanted:
+                continue
+            t0 = time.time()
+            bundle = load_bundle(
+                path["sd_version"], seed=opt.seed, device="cuda",
+                runtime=RuntimeConfig(conv_impl=path["conv_impl"]))
+            torch.cuda.synchronize()
+            emit({"phase": "load", "path": path["name"],
+                  "sd_version": path["sd_version"], "seconds": time.time() - t0,
+                  "memory_allocated": torch.cuda.memory_allocated()})
+            if "model" in phases:
+                with torch.no_grad():
+                    phase_model(bundle, path)
+            if "requests" in phases:
+                pipe = ElasticDiffusion(device="cuda", bundle=bundle,
+                                        sd_version=path["sd_version"])
+                logs[path["name"]], t = phase_requests(
+                    pipe, path, opt.steps, opt.resampling_steps)
+                totals.update(t)
+                del pipe
+            # one bundle at a time on the card
+            del bundle
+            gc.collect()
+            torch.cuda.empty_cache()
 
     listed = []
     if "kernels" in phases and "requests" in phases:
         for r in cases:
-            n = log.get(r["log_key"], 0)
+            by_path = {name: log.get(r["log_key"], 0)
+                       for name, log in logs.items()}
+            n = sum(by_path.values())
             if n == 0:
-                continue  # checked above, but not a shape of this run
+                continue  # checked above, but not a shape of these runs
             listed.append({"name": r["name"], "route": r["route"],
                            "source": r["source"], "replaces": r["replaces"],
-                           "launches": n, "max_abs_err": r["max_abs_err"],
+                           "launches": n, "launches_by_path": by_path,
+                           "max_abs_err": r["max_abs_err"],
                            "ms": r["ms"], "plain_ms": r["plain_ms"],
                            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                            "library_ms": r["library_ms"]})
         for kernel in totals:
             if not any(e["name"].startswith(kernel + "/") for e in listed):
-                fail(f"{kernel}: none of the checked shapes ran on the main path")
+                fail(f"{kernel}: none of the checked shapes ran on a main path")
 
     emit({"phase": "total", "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": listed})
-    if set(phases) != set(ALL_PHASES):
+    if set(phases) != set(ALL_PHASES) or len(logs) != len(PATHS):
         # a partial run is a tool for development, never the proof
-        print(json.dumps({"ok": False, "partial": phases}), flush=True)
+        print(json.dumps({"ok": False, "partial": phases,
+                          "paths": sorted(logs)}), flush=True)
         return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -254,6 +254,7 @@ class ViewConfig:
 
 
 from .kernels import MODES as USE_KERNELS_MODES  # noqa: E402
+from .kernels import check_conv_impl  # noqa: E402
 
 
 @dataclass(frozen=True)
@@ -263,19 +264,25 @@ class RuntimeConfig:
     use_kernels: 'auto' takes the hand-written CUDA kernel for a CUDA tensor
     and the plain version for a CPU tensor; 'on' raises on a CPU tensor;
     'off' takes the plain version everywhere (comparisons only, nothing on
-    the main path)."""
+    the main path).
+
+    conv_impl: 'cudnn' leaves the UNet's stride-1 3x3 convolutions to
+    ``nn.Conv2d``; 'kernel' sends those inside the kernel's gate to the
+    hand-written conv3x3 kernel (the VAE stays on cuDNN either way)."""
 
     param_dtype: torch.dtype = torch.bfloat16    # device-resident weights
     compute_dtype: torch.dtype = torch.bfloat16  # matmul/conv dtype
     accum_dtype: torch.dtype = torch.float32     # direction/latent accumulators
     vae_decode_fp32: bool = True                 # force_upcast analog
     use_kernels: str = "auto"                    # 'auto' | 'on' | 'off'
+    conv_impl: str = "cudnn"                     # 'cudnn' | 'kernel'
     view_batch_size: int = 0                     # 0 = all views in one batch
 
     def __post_init__(self):
         if self.use_kernels not in USE_KERNELS_MODES:
             raise ValueError(f"use_kernels must be one of {USE_KERNELS_MODES}, "
                              f"got {self.use_kernels!r}")
+        check_conv_impl(self.conv_impl)
 
 
 @dataclass(frozen=True)

@@ -58,6 +58,10 @@ class _StepContext:
     text_cfg: torch.Tensor
     uncond_text: torch.Tensor
     generator: torch.Generator
+    # SDXL 'text_time' conditioning; None for the other families
+    add_text_cfg: Optional[torch.Tensor] = None
+    uncond_pooled: Optional[torch.Tensor] = None
+    add_time_ids: Optional[torch.Tensor] = None
 
 
 class ElasticDiffusion:
@@ -129,10 +133,24 @@ class ElasticDiffusion:
                                    self.vae_scale_factor)
 
     def get_text_embeds(self, prompts) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(text embeddings, pooled embedding), both fp32. SDXL: the
+        penultimate hidden states of both encoders joined on the last dim,
+        and the projected pooled output of the second."""
         b = self.bundle
+        if b.config.is_xl:
+            _, pen0, _ = b.encode_text(b.tokenizers[0](prompts), 0)
+            _, pen1, pooled = b.encode_text(b.tokenizers[1](prompts), 1)
+            return torch.cat([pen0, pen1], dim=-1).float(), pooled.float()
         ids = b.tokenizers[0](prompts)
         last, _, _ = b.encode_text(ids, 0)
         return last.float(), last.float()
+
+    def _get_add_time_ids(self, original_size, crops_coords_top_left,
+                          target_size) -> torch.Tensor:
+        """SDXL micro-conditioning ids, (1, 6) fp32."""
+        ids = list(original_size) + list(crops_coords_top_left) \
+            + list(target_size)
+        return torch.tensor([ids], dtype=torch.float32, device=self.device)
 
     def decode_latents(self, latents) -> torch.Tensor:
         img = self.bundle.vae_decode(
@@ -184,10 +202,12 @@ class ElasticDiffusion:
         res = signals.approximate_latent_direction(
             self.bundle, lat, ctx.generator, t, ctx.text_cfg,
             ctx.resample_plan, ctx.down_pad, bg_down, resampling_steps,
-            ctx.drop_p, scripted_picks=picks)
+            ctx.drop_p, add_text_embeds_cfg=ctx.add_text_cfg,
+            add_time_ids=ctx.add_time_ids, scripted_picks=picks)
         local = signals.compute_local_uncond_signal(
             self.bundle, lat, t, ctx.uncond_text, ctx.view_plan, ctx.view_pad,
-            bg_view, view_batch_size=ctx.view_chunk)
+            bg_view, uncond_pooled=ctx.uncond_pooled,
+            add_time_ids=ctx.add_time_ids, view_batch_size=ctx.view_chunk)
         return res, local
 
     def _denoise_step(self, ctx: _StepContext, lat, inp: Dict[str, Any],
@@ -293,9 +313,18 @@ class ElasticDiffusion:
         rrg_w = rrg_weight_table(rrg_sched, num_inference_steps)
 
         # text
-        uncond_text, _ = self.get_text_embeds(negative_prompts)
-        cond_text, _ = self.get_text_embeds(prompts)
+        uncond_text, uncond_pooled = self.get_text_embeds(negative_prompts)
+        cond_text, cond_pooled = self.get_text_embeds(prompts)
         text_cfg = torch.cat([uncond_text, cond_text])
+        add_text_cfg = add_time_ids = uncond_pooled_arg = None
+        if b.config.is_xl:
+            add_text_cfg = torch.cat([uncond_pooled, cond_pooled])
+            # the reference's micro-conditioning quirk: original and target
+            # size are (4H, 4W), not the size asked for
+            default_size = (4 * height, 4 * width)
+            add_time_ids = self._get_add_time_ids(default_size, (0, 0),
+                                                  default_size)
+            uncond_pooled_arg = uncond_pooled
 
         # initial latent
         if latents is None:
@@ -322,7 +351,9 @@ class ElasticDiffusion:
             drop_p=1 - new_p, view_chunk=view_chunk, text_cfg=text_cfg,
             uncond_text=uncond_text,
             generator=torch.Generator(device=dev).manual_seed(
-                _fold(self._seed, 3)))
+                _fold(self._seed, 3)),
+            add_text_cfg=add_text_cfg, uncond_pooled=uncond_pooled_arg,
+            add_time_ids=add_time_ids)
 
         do_repaint = repaint_sampling and resampling_steps > 0
         T = num_inference_steps
@@ -378,8 +409,9 @@ class ElasticDiffusion:
         image_log: Dict[str, Any] = {}
         if self.verbose:
             image_log = self._image_log(
-                init_downsampled_latent, text_cfg, guidance_scale, T, down_pad,
-                bg_down_tbl, st, inter_x0, inter_rrg_x0)
+                init_downsampled_latent, text_cfg, add_text_cfg, add_time_ids,
+                guidance_scale, T, down_pad, bg_down_tbl, st, inter_x0,
+                inter_rrg_x0)
 
         t_dec0 = time.time()
         imgs = torch.cat([self.decode_latents(lat[i:i + 1]) for i in range(B)])
@@ -393,8 +425,9 @@ class ElasticDiffusion:
             return to_pil(arr), image_log
         return to_pil(imgs), image_log
 
-    def _image_log(self, init_down, text_cfg, guidance_scale, steps, down_pad,
-                   bg_down_tbl, st, inter_x0, inter_rrg_x0) -> Dict[str, Any]:
+    def _image_log(self, init_down, text_cfg, add_text_cfg, add_time_ids,
+                   guidance_scale, steps, down_pad, bg_down_tbl, st, inter_x0,
+                   inter_rrg_x0) -> Dict[str, Any]:
         """The verbose image log: the low-resolution global image and the
         decoded intermediate x0 predictions."""
         log: Dict[str, Any] = {}
@@ -403,8 +436,9 @@ class ElasticDiffusion:
         row = lambda dec: to_pil(make_grid(dec, nrow=len(dec))[None])[0]
         if init_down is not None:
             g_img, g_info = self.generate(
-                init_down, text_cfg, guidance_scale=guidance_scale,
-                num_inference_steps=steps, pad_spec=down_pad,
+                init_down, text_cfg, add_text_cfg,
+                guidance_scale=guidance_scale, num_inference_steps=steps,
+                add_time_ids=add_time_ids, pad_spec=down_pad,
                 bg_tables=bg_down_tbl or None, state=st)
             log["global_img"] = to_pil(g_img)[0]
             if g_info["inter_x0"]:

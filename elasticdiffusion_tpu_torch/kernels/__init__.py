@@ -6,9 +6,23 @@ and the dispatch on ``use_kernels``:
   'auto'  kernel for a CUDA tensor, plain version for a CPU tensor
   'on'    kernel; a CPU tensor raises
   'off'   plain version everywhere (comparisons only)
+
+The 3x3 convolution is a configuration of its own, ``conv_impl``, as it is in
+the JAX package (``ED_CONV_IMPL``):
+
+  'cudnn'   ``nn.Conv2d.forward`` (the default)
+  'kernel'  the hand-written kernel for a CUDA tensor inside its gate, its
+            plain version for a CPU tensor
 """
 
 MODES = ("auto", "on", "off")
+CONV_IMPLS = ("cudnn", "kernel")
+
+
+def check_conv_impl(mode: str) -> str:
+    if mode not in CONV_IMPLS:
+        raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {mode!r}")
+    return mode
 
 
 def wants_kernel(mode: str, is_cuda: bool, what: str) -> bool:

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention", "layernorm", "groupnorm")
+SOURCES = ("flash_attention", "layernorm", "groupnorm", "conv3x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -32,6 +32,13 @@
 // D = 512 accumulator (the VAE mid attention) live in registers: no thread
 // holds more than 64 of its floats.
 //
+// Head dims: 64 (SD 2.x / SDXL UNet), 512 (VAE mid block) and 40 / 80 / 160
+// (SD 1.x UNet, 8 heads per block). A head dim that is not a multiple of the
+// tile step is padded with zeros in shared memory only (40 -> 48 columns for
+// the k-step 16 of mma; 40 -> 64 and 80 -> 96 for the 32 lanes of the fp32
+// body): global rows keep their true width, pad columns add exact zeros to
+// Q.K^T, and the pad columns of O are never stored.
+//
 // Bound on this card: operations (4*B*H*Sq*Sk*D) for the self-attention
 // shapes; the design reaches the tensor cores through mma.sync only. wgmma,
 // TMA loads and a pipelined K/V ring are the known next steps.
@@ -129,15 +136,16 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
       : "r"(addr));
 }
 
-template <int D, int LD, int THREADS>
+// D true head dim, DP its zero-padded width in shared memory
+template <int D, int DP, int LD, int THREADS>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
                                                long long row_stride, int rows,
                                                int valid_rows, int tid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  constexpr int CPR = DP / 8;  // 16-byte chunks per row
   for (int idx = tid; idx < rows * CPR; idx += THREADS) {
     const int r = idx / CPR, cc = idx % CPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows)
+    if (r < valid_rows && cc < D / 8)
       val = *reinterpret_cast<const uint4*>(src + (long long)r * row_stride +
                                             cc * 8);
     *reinterpret_cast<uint4*>(dst + r * LD + cc * 8) = val;
@@ -148,7 +156,8 @@ template <int D, int BM, int BN, int WG>
 struct MmaCfg {
   static constexpr int NW = (BM / 16) * WG;
   static constexpr int THREADS = NW * 32;
-  static constexpr int LD = D + 8;    // bf16 elements; +16 bytes kills conflicts
+  static constexpr int DP = (D + 15) / 16 * 16;  // padded to the mma k-step
+  static constexpr int LD = DP + 8;   // bf16 elements; +16 bytes kills conflicts
   static constexpr int LDP = BN + 8;  // bf16 elements
   static constexpr int LDS = BN + 1;  // floats
   static constexpr size_t SMEM =
@@ -160,13 +169,13 @@ template <int D, int BM, int BN, int WG>
 __global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
     flash_mma_bf16(AttnParams p) {
   using Cfg = MmaCfg<D, BM, BN, WG>;
-  constexpr int THREADS = Cfg::THREADS, LD = Cfg::LD, LDP = Cfg::LDP,
-                LDS = Cfg::LDS;
+  constexpr int THREADS = Cfg::THREADS, DP = Cfg::DP, LD = Cfg::LD,
+                LDP = Cfg::LDP, LDS = Cfg::LDS;
   constexpr int KPW = BN / WG;    // keys per warp in the S phase
-  constexpr int DPW = D / WG;     // head dims per warp in the P.V phase
+  constexpr int DPW = DP / WG;    // head dims per warp in the P.V phase
   constexpr int NT_S = KPW / 8;   // 8-wide n-tiles of S per warp
   constexpr int NT_O = DPW / 8;   // 8-wide n-tiles of O per warp
-  static_assert(KPW % 8 == 0 && DPW % 8 == 0 && D % 16 == 0 && BN % 16 == 0,
+  static_assert(KPW % 8 == 0 && DPW % 8 == 0 && D % 8 == 0 && BN % 16 == 0,
                 "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -190,7 +199,7 @@ __global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
   const bf16* vp = static_cast<const bf16*>(p.v) + (long long)b * p.v_sb +
                    (long long)h * p.v_sh;
 
-  load_tile_bf16<D, LD, THREADS>(Qs, qp, p.q_ss, BM, min(BM, p.Sq - q0), tid);
+  load_tile_bf16<D, DP, LD, THREADS>(Qs, qp, p.q_ss, BM, min(BM, p.Sq - q0), tid);
   if (tid < BM) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -208,9 +217,9 @@ __global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
   for (int kt = 0; kt < p.Sk; kt += BN) {
     const int valid = min(BN, p.Sk - kt);
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile_bf16<D, LD, THREADS>(Ks, kp + (long long)kt * p.k_ss, p.k_ss, BN,
+    load_tile_bf16<D, DP, LD, THREADS>(Ks, kp + (long long)kt * p.k_ss, p.k_ss, BN,
                                    valid, tid);
-    load_tile_bf16<D, LD, THREADS>(Vs, vp + (long long)kt * p.v_ss, p.v_ss, BN,
+    load_tile_bf16<D, DP, LD, THREADS>(Vs, vp + (long long)kt * p.v_ss, p.v_ss, BN,
                                    valid, tid);
     __syncthreads();
 
@@ -220,7 +229,7 @@ __global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
     for (int nt = 0; nt < NT_S; ++nt)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll 8
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < DP / 16; ++ks) {
       const bf16* qa = Qs + (r0 + g) * LD + ks * 16 + 2 * tig;
       const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qa);
       const uint32_t a1 = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
@@ -282,6 +291,7 @@ __global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
 #pragma unroll
   for (int nt = 0; nt < NT_O; ++nt) {
     const int col = wg * DPW + nt * 8 + 2 * tig;
+    if (col >= D) continue;  // a pad column
     if (row_lo < p.Sq) {
       bf16* dst = op + (((long long)b * p.Sq + row_lo) * p.H + h) * D + col;
       *reinterpret_cast<__nv_bfloat162*>(dst) =
@@ -302,23 +312,24 @@ __global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
 template <int D, int BM, int BN>
 struct FmaCfg {
   static constexpr int THREADS = 256;
-  static constexpr int LDQ = D + 1;   // floats; odd stride kills conflicts
-  static constexpr int LDV = D;
+  static constexpr int DP = (D + 31) / 32 * 32;  // padded to the 32 lanes
+  static constexpr int LDQ = DP + 1;  // floats; odd stride kills conflicts
+  static constexpr int LDV = DP;
   static constexpr int LDS = BN + 1;
   static constexpr size_t SMEM =
       (size_t)(BM * LDQ + BN * LDQ + BN * LDV + BM * LDS + 3 * BM) *
       sizeof(float);
 };
 
-template <int D, int LDX, int THREADS>
+template <int D, int DP, int LDX, int THREADS>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long row_stride, int rows,
                                               int valid_rows, int tid) {
-  constexpr int CPR = D / 4;  // 16-byte chunks per row
+  constexpr int CPR = DP / 4;  // 16-byte chunks per row
   for (int idx = tid; idx < rows * CPR; idx += THREADS) {
     const int r = idx / CPR, cc = idx % CPR;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid_rows)
+    if (r < valid_rows && cc < D / 4)
       val = *reinterpret_cast<const float4*>(src + (long long)r * row_stride +
                                              cc * 4);
     float* d = dst + r * LDX + cc * 4;
@@ -332,12 +343,12 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
 template <int D, int BM, int BN>
 __global__ void __launch_bounds__(256) flash_fma_f32(AttnParams p) {
   using Cfg = FmaCfg<D, BM, BN>;
-  constexpr int THREADS = Cfg::THREADS, LDQ = Cfg::LDQ, LDV = Cfg::LDV,
-                LDS = Cfg::LDS;
+  constexpr int THREADS = Cfg::THREADS, DP = Cfg::DP, LDQ = Cfg::LDQ,
+                LDV = Cfg::LDV, LDS = Cfg::LDS;
   constexpr int TM = BM / 16, TN = BN / 16;  // S micro-tile of a thread
   constexpr int R = BM / 8;                  // O rows of a warp
-  constexpr int KD = D / 32;                 // O head dims of a lane
-  static_assert(BM % 16 == 0 && BN % 16 == 0 && D % 32 == 0, "tile shape");
+  constexpr int KD = DP / 32;                // O head dims of a lane
+  static_assert(BM % 16 == 0 && BN % 16 == 0 && D % 4 == 0, "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -359,7 +370,7 @@ __global__ void __launch_bounds__(256) flash_fma_f32(AttnParams p) {
   const float* vp = static_cast<const float*>(p.v) + (long long)b * p.v_sb +
                     (long long)h * p.v_sh;
 
-  load_tile_f32<D, LDQ, THREADS>(Qs, qp, p.q_ss, BM, min(BM, p.Sq - q0), tid);
+  load_tile_f32<D, DP, LDQ, THREADS>(Qs, qp, p.q_ss, BM, min(BM, p.Sq - q0), tid);
   if (tid < BM) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -375,9 +386,9 @@ __global__ void __launch_bounds__(256) flash_fma_f32(AttnParams p) {
   for (int kt = 0; kt < p.Sk; kt += BN) {
     const int valid = min(BN, p.Sk - kt);
     __syncthreads();
-    load_tile_f32<D, LDQ, THREADS>(Ks, kp + (long long)kt * p.k_ss, p.k_ss, BN,
+    load_tile_f32<D, DP, LDQ, THREADS>(Ks, kp + (long long)kt * p.k_ss, p.k_ss, BN,
                                    valid, tid);
-    load_tile_f32<D, LDV, THREADS>(Vs, vp + (long long)kt * p.v_ss, p.v_ss, BN,
+    load_tile_f32<D, DP, LDV, THREADS>(Vs, vp + (long long)kt * p.v_ss, p.v_ss, BN,
                                    valid, tid);
     __syncthreads();
 
@@ -440,7 +451,8 @@ __global__ void __launch_bounds__(256) flash_fma_f32(AttnParams p) {
       const float il = 1.f / l_s[warp * R + i];
       float* dst = op + (((long long)b * p.Sq + row) * p.H + h) * D;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) dst[lane + 32 * kk] = acc[i][kk] * il;
+      for (int kk = 0; kk < KD; ++kk)
+        if (lane + 32 * kk < D) dst[lane + 32 * kk] = acc[i][kk] * il;
     }
   }
 }
@@ -488,6 +500,26 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
     return (int)launch(flash_mma_bf16<512, 32, 32, 4>, Cfg::SMEM, Cfg::THREADS,
                        32, p, st);
   }
+#define ED_FLASH_BF16(DD)                                                     \
+  if (dtype == 0 && D == DD) {                                                \
+    using Cfg = MmaCfg<DD, 64, 64, 2>;                                        \
+    return (int)launch(flash_mma_bf16<DD, 64, 64, 2>, Cfg::SMEM,              \
+                       Cfg::THREADS, 64, p, st);                              \
+  }
+#define ED_FLASH_F32(DD)                                                      \
+  if (dtype == 1 && D == DD) {                                                \
+    using Cfg = FmaCfg<DD, 64, 64>;                                           \
+    return (int)launch(flash_fma_f32<DD, 64, 64>, Cfg::SMEM, Cfg::THREADS,    \
+                       64, p, st);                                            \
+  }
+  ED_FLASH_BF16(40)
+  ED_FLASH_BF16(80)
+  ED_FLASH_BF16(160)
+  ED_FLASH_F32(40)
+  ED_FLASH_F32(80)
+  ED_FLASH_F32(160)
+#undef ED_FLASH_BF16
+#undef ED_FLASH_F32
   if (dtype == 1 && D == 64) {
     using Cfg = FmaCfg<64, 64, 64>;
     return (int)launch(flash_fma_f32<64, 64, 64>, Cfg::SMEM, Cfg::THREADS, 64,

@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernels of
 ``_flash_kernel_bf16_nn``, ``_flash_kernel``) with one CUDA C++ kernel,
 ``csrc/flash_attention.cu``: an online-softmax loop over key tiles, tensor
 cores (``mma.sync``) for bf16 and full-precision FMAs for fp32, instantiated
-for head dims 64 (the SD 2.x / SDXL UNet) and 512 (the VAE mid block).
+for head dims 64 (the SD 2.x / SDXL UNet), 512 (the VAE mid block) and
+40 / 80 / 160 (the SD 1.x UNet: 8 heads at 320 / 640 / 1280 channels; the
+kernel pads 40 to its tile step with zeros in shared memory).
 
 Bound on this card: operations, ``4*B*H*Sq*Sk*D``, against the bf16 tensor
 core peak (fp32: the CUDA-core peak); for cross-attention (Sk = 77) the q and
@@ -24,7 +26,7 @@ import torch
 
 from . import build, note_launch
 
-HEAD_DIMS = (64, 512)
+HEAD_DIMS = (40, 64, 80, 160, 512)
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -66,8 +68,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if Sk < 1 or Sq < 1:
         raise ValueError("empty sequence")
     unsupported = (f"flash_attention has no kernel for head dim {D} "
-                   f"(built: {HEAD_DIMS}); SD 1.x head dims 40/80/160 are "
-                   f"ROADMAP.md Queue 1 item 2")
+                   f"(built: {HEAD_DIMS})")
     if D not in HEAD_DIMS:
         raise NotImplementedError(unsupported)
     q, k, v = (t if _strided_ok(t) else t.contiguous() for t in (q, k, v))

@@ -17,6 +17,8 @@ of a checkpoint loads by name.
 
 Every norm and attention module carries ``use_kernels`` ('auto' | 'on' |
 'off', see ``kernels/__init__.py``); ``set_use_kernels`` flips a whole model.
+Every ``Conv3x3`` carries ``conv_impl`` ('cudnn' | 'kernel');
+``set_conv_impl`` flips a whole model.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import check_conv_impl
+from ..kernels import conv3x3 as conv_kernel
 from ..kernels.attention import dot_product_attention
 from ..kernels.groupnorm import group_norm, reference_group_norm
 from ..kernels.layernorm import layer_norm
@@ -38,6 +42,14 @@ def set_use_kernels(module: nn.Module, mode: str) -> None:
     for m in module.modules():
         if hasattr(m, "use_kernels"):
             m.use_kernels = mode
+
+
+def set_conv_impl(module: nn.Module, mode: str) -> None:
+    """Set ``conv_impl`` on every ``Conv3x3`` below."""
+    check_conv_impl(mode)
+    for m in module.modules():
+        if isinstance(m, Conv3x3):
+            m.conv_impl = mode
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -130,10 +142,60 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
-def Conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
-    """3x3 SAME stride-1 convolution, left to cuDNN (the JAX package leaves
-    it to XLA; its opt-in Pallas conv is not on the path)."""
-    return nn.Conv2d(in_channels, out_channels, 3, padding=1)
+class Conv3x3(nn.Conv2d):
+    """3x3 SAME stride-1 convolution; an ``nn.Conv2d`` in its parameters
+    (``weight`` (O, C, 3, 3), ``bias``), so state dicts load unchanged.
+
+    ``conv_impl`` is the counterpart of the JAX package's ``ED_CONV_IMPL``:
+    'cudnn' (the default, as the JAX default is XLA's conv) runs
+    ``nn.Conv2d.forward``; 'kernel' sends an input inside the gate (4-D,
+    ``C % 8 == 0`` and ``O % 8 == 0``) to the hand-written kernel on a CUDA
+    tensor and to its plain version on a CPU tensor. Outside the gate
+    (``conv_in`` with 4 input channels, ``conv_out`` with 4 output channels)
+    both modes run ``nn.Conv2d.forward``.
+
+    The kernel reads the NHWC view of a ``channels_last`` input and the HWIO
+    view of a ``channels_last`` weight in place. A weight in another layout
+    is laid out once per module, not once per call.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 conv_impl: str = "cudnn"):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+        self.conv_impl = check_conv_impl(conv_impl)
+        self._hwio = None  # ((weight version, data_ptr), its HWIO re-layout)
+        # times nn.Conv2d.forward ran on a CUDA tensor inside the gate
+        self.library_cuda_calls = 0
+
+    def in_gate(self, x: torch.Tensor) -> bool:
+        return x.dim() == 4 and conv_kernel.in_gate(
+            (x.shape[0], x.shape[2], x.shape[3], x.shape[1]),
+            (3, 3, self.in_channels, self.out_channels))
+
+    def _weight_hwio(self) -> torch.Tensor:
+        """(3, 3, C, O) view of the weight with C contiguous."""
+        w = self.weight
+        if w.is_contiguous(memory_format=torch.channels_last):
+            return w.permute(2, 3, 1, 0)
+        key = (w._version, w.data_ptr())
+        if self._hwio is None or self._hwio[0] != key:
+            laid = w.detach().contiguous(memory_format=torch.channels_last)
+            self._hwio = (key, laid.permute(2, 3, 1, 0))
+        return self._hwio[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inside = self.in_gate(x)
+        if check_conv_impl(self.conv_impl) == "kernel" and inside:
+            xh = x.permute(0, 2, 3, 1)  # NHWC; a view of a channels_last tensor
+            if x.is_cuda:  # launches or raises
+                y = conv_kernel.conv3x3(xh, self._weight_hwio(), self.bias)
+            else:
+                y = conv_kernel.reference_conv3x3(
+                    xh, self.weight.permute(2, 3, 1, 0), self.bias)
+            return y.permute(0, 3, 1, 2)
+        if inside and x.is_cuda:
+            self.library_cuda_calls += 1
+        return super().forward(x)
 
 
 class ResnetBlock2D(nn.Module):

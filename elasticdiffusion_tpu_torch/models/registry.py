@@ -5,8 +5,12 @@ holds the UNet, the VAE, the text encoders and the tokenizers, and offers the
 forwards the pipeline calls: ``apply_unet``, ``vae_decode``,
 ``vae_encode_sample``, ``encode_text``. ``load_bundle`` builds one with seeded
 random weights directly on the device (no checkpoint files are part of the
-repository yet). The JAX package's segmented chain, text offload and scan
-restacking are TPU-runtime work and have no counterpart.
+repository yet), for every family of ``configs.get_bundle_config``: SD 1.4 /
+1.5, SD 2.0 / 2.1 and SDXL 1.0 (two text encoders, the second tokenizer
+padding with id 0, fp32 ``force_upcast`` decode). ``runtime.conv_impl`` goes
+to the UNet only; the VAE's convolutions stay on cuDNN, as the JAX package's
+VAE never asks for its conv kernel. The JAX package's segmented chain, text
+offload and scan restacking are TPU-runtime work and have no counterpart.
 
 The device is explicit: ``device="cuda"`` is the default and raises when CUDA
 is absent; the CPU is used only when the caller passes ``device="cpu"``.
@@ -25,7 +29,7 @@ import torch.nn as nn
 from ..configs import ModelBundleConfig, RuntimeConfig, get_bundle_config
 from ..utils.tokenizer import CLIPTokenizer
 from .clip import CLIPTextModel
-from .layers import set_use_kernels
+from .layers import set_conv_impl, set_use_kernels
 from .unet import UNet2DCondition
 from .vae import AutoencoderKL
 
@@ -70,6 +74,11 @@ class ModelBundle:
         their plain versions ('auto' | 'on' | 'off')."""
         for m in (self.unet, self.vae, self.vae_fp32, *self.text_models):
             set_use_kernels(m, mode)
+
+    def set_conv_impl(self, mode: str) -> None:
+        """'cudnn' | 'kernel' for the UNet's 3x3 convolutions (the VAE stays
+        on cuDNN)."""
+        set_conv_impl(self.unet, mode)
 
     @torch.no_grad()
     def apply_unet(self, latent_nchw, t, context, added_text_embeds=None,
@@ -172,10 +181,6 @@ def load_bundle(sd_version: str, runtime: RuntimeConfig = RuntimeConfig(),
         raise NotImplementedError(
             "ControlNet is not ported yet (ROADMAP.md Queue 1, ControlNet)")
     cfg = bundle_config or get_bundle_config(sd_version)
-    if cfg.is_xl:
-        raise NotImplementedError(
-            "SDXL (text_time conditioning, two text encoders, fp32 "
-            "force_upcast decode) is not wired yet (ROADMAP.md Queue 1, SDXL)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     uk = runtime.use_kernels
@@ -183,6 +188,7 @@ def load_bundle(sd_version: str, runtime: RuntimeConfig = RuntimeConfig(),
     unet = _build(lambda: UNet2DCondition(cfg.unet, use_kernels=uk), dev, gen)
     unet = unet.to(dtype=runtime.param_dtype,
                    memory_format=torch.channels_last)
+    set_conv_impl(unet, runtime.conv_impl)
     vae_fp32 = _build(lambda: AutoencoderKL(cfg.vae, use_kernels=uk), dev, gen)
     vae_fp32 = vae_fp32.to(memory_format=torch.channels_last)
     vae = _to_compute(vae_fp32, runtime.compute_dtype)
@@ -192,8 +198,11 @@ def load_bundle(sd_version: str, runtime: RuntimeConfig = RuntimeConfig(),
 
     if tokenizer_dirs is None:
         tokenizer_dirs = tuple([None] * len(cfg.text_encoders))
+    # SDXL's second tokenizer pads with id 0, every other one with EOS
     tokenizers = tuple(
-        CLIPTokenizer(vocab_dir=td, vocab_size=cfg.text_encoders[i].vocab_size)
+        CLIPTokenizer(vocab_dir=td,
+                      pad_token_id=0 if (cfg.is_xl and i == 1) else None,
+                      vocab_size=cfg.text_encoders[i].vocab_size)
         for i, td in enumerate(tokenizer_dirs))
 
     return ModelBundle(config=cfg, runtime=runtime, device=dev, unet=unet,

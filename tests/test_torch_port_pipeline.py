@@ -18,48 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-import elasticdiffusion_tpu.core.pipeline as jpipe
 from elasticdiffusion_tpu.core.pipeline import ElasticDiffusion as JElastic
-from elasticdiffusion_tpu.ops.resample import build_resample_plan
 
-from elasticdiffusion_tpu_torch.core import background as tbg
 from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion as TElastic
-from torch_port_common import t2n, toy_bundles
+from torch_port_common import pipeline_parity_run, t2n, toy_bundles
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _scripted(rng, steps, rs, N, shape, repaint):
-    picks_main, picks_repaint, noise = [], [], []
-    for _ in range(steps):
-        p = rng.integers(0, 4, (rs + 1, N)).astype(np.int32)
-        p[0] = 0  # the deterministic top-left pick of substep 0
-        picks_main.append(p)
-        picks_repaint.append(np.zeros((1, N), np.int32))
-        noise.append(rng.standard_normal((1000 // steps,) + shape).astype(np.float32))
-    scripted = {"picks_main": picks_main}
-    if repaint:
-        scripted.update(picks_repaint=picks_repaint, repaint_noise=noise)
-    return scripted
-
-
-def _jax_step_latents(pipe, tmp_path, **kw):
-    """Per-step-end latents of the JAX pipeline: it checkpoints the latent
-    after every step, and a progress wrapper reads each checkpoint back
-    before the next step overwrites it."""
-    path = str(tmp_path / "latent.npz")
-    seen = []
-
-    def progress(steps):
-        for i in steps:
-            if i > 0:
-                seen.append(np.load(path)["latent"])
-            yield i
-
-    img, info = pipe.generate_image("a photo of a cat", progress=progress,
-                                    checkpoint_path=path, checkpoint_every=1,
-                                    return_arrays=True, **kw)
-    return img, seen + [info["latent"]]
 
 
 @pytest.mark.parametrize("repaint,rrg,rs", [
@@ -71,40 +35,9 @@ def _jax_step_latents(pipe, tmp_path, **kw):
 def test_generate_image_matches_jax_pipeline(repaint, rrg, rs, monkeypatch, tmp_path):
     jb, tb = toy_bundles()
     steps, height, width = 2, 32, 48
-    jp = JElastic(bundle=jb)
-    jp.seed_everything(0)
-    tp = TElastic(bundle=tb, device="cpu")
-    tp.seed_everything(0)
-    vsf = jb.vae_scale_factor
-    H, W = height // vsf, width // vsf
-    plan = build_resample_plan(H, W, *jp.get_downsample_size(height, width))
-    rng = np.random.default_rng(0)
-    init = rng.standard_normal((1, 4, H, W)).astype(np.float32)
-    kw = dict(height=height, width=width, num_inference_steps=steps,
-              guidance_scale=7.5, resampling_steps=rs, new_p=0.3,
-              rrg_init_weight=1000.0 if rrg else 0.0, rrg_stop_t=0.0,
-              repaint_sampling=repaint, latents=init,
-              scripted_noise=_scripted(rng, steps, rs, plan.num_blocks,
-                                       (1, 4, H, W), repaint))
-
-    recorded = []
-    j_make = jpipe.make_background_table
-
-    def record(*a, **k):
-        recorded.append(j_make(*a, **k))
-        return recorded[-1]
-
-    monkeypatch.setattr(jpipe, "make_background_table", record)
-    jimg, jlats = _jax_step_latents(jp, tmp_path, **kw)
-    assert recorded, "the toy geometry must pad with backgrounds"
-
-    replay = iter(recorded)
-    monkeypatch.setattr(
-        tbg, "make_background_table",
-        lambda *a, **k: {s: torch.tensor(np.asarray(v))
-                         for s, v in next(replay).items()})
-    timg, tinfo = tp.generate_image("a photo of a cat", return_arrays=True, **kw)
-    tlats = [t2n(l) for l in tp.last_step_latents]
+    jp, tp, jimg, jlats, timg, tinfo, tlats = pipeline_parity_run(
+        jb, tb, monkeypatch, tmp_path, repaint=repaint, rrg=rrg, rs=rs,
+        steps=steps, height=height, width=width)
 
     assert len(jlats) == len(tlats) == steps
     np.testing.assert_array_equal(tlats[-1], tinfo["latent"])

@@ -56,10 +56,13 @@ def test_small_configs_equal_and_runtime_is_cut():
     assert tcfg.MODEL_KEYS == jcfg.MODEL_KEYS
     names = {f.name for f in dataclasses.fields(tcfg.RuntimeConfig)}
     assert names == {"param_dtype", "compute_dtype", "accum_dtype",
-                     "vae_decode_fp32", "use_kernels", "view_batch_size"}
+                     "vae_decode_fp32", "use_kernels", "conv_impl",
+                     "view_batch_size"}
     assert tcfg.RuntimeConfig().compute_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         tcfg.RuntimeConfig(use_kernels="maybe")
+    with pytest.raises(ValueError):
+        tcfg.RuntimeConfig(conv_impl="maybe")
 
 
 @pytest.mark.parametrize("steps", [1, 2, 4, 50])

@@ -44,16 +44,17 @@ def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@functools.lru_cache(maxsize=1)
-def toy_bundles():
-    """(JAX toy SD bundle, the port's bundle on the CPU with its weights)."""
-    jb = make_toy_bundle()
-    tb = load_bundle("toy", TORCH_TOY_RUNTIME,
+@functools.lru_cache(maxsize=2)
+def toy_bundles(xl: bool = False):
+    """(JAX toy SD bundle, the port's bundle on the CPU with its weights);
+    xl=True gives the toy SDXL pair (two text encoders, text_time UNet)."""
+    jb = make_toy_bundle(xl=xl)
+    tb = load_bundle(jb.config.sd_version, TORCH_TOY_RUNTIME,
                      bundle_config=port_bundle_config(jb.config), device="cpu")
     tb.unet.load_state_dict(unet_from_jax(to_numpy_tree(jb.unet_params)))
     tb.vae_fp32.load_state_dict(vae_from_jax(to_numpy_tree(jb.vae_params)))
-    tb.text_models[0].load_state_dict(
-        clip_from_jax(to_numpy_tree(jb.text_params[0])))
+    for model, params in zip(tb.text_models, jb.text_params):
+        model.load_state_dict(clip_from_jax(to_numpy_tree(params)))
     return jb, tb
 
 
@@ -63,3 +64,86 @@ def t2n(t: torch.Tensor) -> np.ndarray:
 
 def max_abs(a, b) -> float:
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def _scripted(rng, steps, rs, N, shape, repaint):
+    picks_main, picks_repaint, noise = [], [], []
+    for _ in range(steps):
+        p = rng.integers(0, 4, (rs + 1, N)).astype(np.int32)
+        p[0] = 0  # the deterministic top-left pick of substep 0
+        picks_main.append(p)
+        picks_repaint.append(np.zeros((1, N), np.int32))
+        noise.append(rng.standard_normal((1000 // steps,) + shape).astype(np.float32))
+    scripted = {"picks_main": picks_main}
+    if repaint:
+        scripted.update(picks_repaint=picks_repaint, repaint_noise=noise)
+    return scripted
+
+
+def _jax_step_latents(pipe, tmp_path, **kw):
+    """Per-step-end latents of the JAX pipeline: it checkpoints the latent
+    after every step, and a progress wrapper reads each checkpoint back
+    before the next step overwrites it."""
+    path = str(tmp_path / "latent.npz")
+    seen = []
+
+    def progress(steps):
+        for i in steps:
+            if i > 0:
+                seen.append(np.load(path)["latent"])
+            yield i
+
+    img, info = pipe.generate_image("a photo of a cat", progress=progress,
+                                    checkpoint_path=path, checkpoint_every=1,
+                                    return_arrays=True, **kw)
+    return img, seen + [info["latent"]]
+
+
+def pipeline_parity_run(jb, tb, monkeypatch, tmp_path, repaint, rrg, rs,
+                        steps=2, height=32, width=48):
+    """Both pipelines on the same injected initial latent, picks and repaint
+    noise (numpy, from a seed) and the same background tables: the JAX
+    package draws them with jax.random inside make_background_table, so the
+    JAX tables are recorded and handed to the port in the place of its own.
+    Returns (jax pipe, port pipe, jax image, jax per-step latents, port
+    image, port info, port per-step latents)."""
+    import elasticdiffusion_tpu.core.pipeline as jpipe
+    from elasticdiffusion_tpu.ops.resample import build_resample_plan
+    from elasticdiffusion_tpu_torch.core import background as tbg
+    from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion as TElastic
+
+    jp = jpipe.ElasticDiffusion(bundle=jb)
+    jp.seed_everything(0)
+    tp = TElastic(bundle=tb, device="cpu")
+    tp.seed_everything(0)
+    vsf = jb.vae_scale_factor
+    H, W = height // vsf, width // vsf
+    plan = build_resample_plan(H, W, *jp.get_downsample_size(height, width))
+    rng = np.random.default_rng(0)
+    init = rng.standard_normal((1, 4, H, W)).astype(np.float32)
+    kw = dict(height=height, width=width, num_inference_steps=steps,
+              guidance_scale=7.5, resampling_steps=rs, new_p=0.3,
+              rrg_init_weight=1000.0 if rrg else 0.0, rrg_stop_t=0.0,
+              repaint_sampling=repaint, latents=init,
+              scripted_noise=_scripted(rng, steps, rs, plan.num_blocks,
+                                       (1, 4, H, W), repaint))
+
+    recorded = []
+    j_make = jpipe.make_background_table
+
+    def record(*a, **k):
+        recorded.append(j_make(*a, **k))
+        return recorded[-1]
+
+    monkeypatch.setattr(jpipe, "make_background_table", record)
+    jimg, jlats = _jax_step_latents(jp, tmp_path, **kw)
+    assert recorded, "the toy geometry must pad with backgrounds"
+
+    replay = iter(recorded)
+    monkeypatch.setattr(
+        tbg, "make_background_table",
+        lambda *a, **k: {s: torch.tensor(np.asarray(v))
+                         for s, v in next(replay).items()})
+    timg, tinfo = tp.generate_image("a photo of a cat", return_arrays=True, **kw)
+    tlats = [t2n(l) for l in tp.last_step_latents]
+    return jp, tp, jimg, jlats, timg, tinfo, tlats
