@@ -11,7 +11,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   device    the card (nvidia-smi name and power limit), torch and CUDA
   build     nvcc builds every kernel from the sources in this checkout
   kernels   every kernel against its plain PyTorch version at the shapes
-            the main paths give it, with times from CUDA events
+            the main paths give it, with times from CUDA events (attention
+            also replayed from a CUDA graph: `device_ms`, the kernel without
+            the host that launches it)
   model     per bundle, one full-width batch-8 UNet forward and one VAE
             decode with the kernels against the same modules with the plain
             versions; for the bundles that run the conv kernel, the forward
@@ -20,7 +22,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
             with seeded random weights on three paths, one bundle at a time:
             SDXL 1.0 and SD 1.5 with conv_impl='kernel', SD 2.1 with the
             default conv_impl='cudnn'; launch counts are set to 0 just before
-            each path and read just after
+            each path and read just after; `unchecked_launches` lists the
+            shapes a path launched that the kernels phase did not check, and
+            an attention shape among them fails the run
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the main paths, error, time and bound. A
@@ -81,6 +85,48 @@ def time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int, iters: int = 5) -> float:
+    """Median milliseconds of one call when `launches` calls are replayed from
+    a CUDA graph: the device's time with no host in the way. Beside
+    `time_ms` it says how much of a short call is the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del graph
+    return statistics.median(times)
+
+
+def enqueue_ms(fn, iters: int = 5) -> float:
+    """Median milliseconds the host takes to enqueue one call (the device is
+    idle at the start and is not waited for): where this is close to
+    `time_ms`, the call is bound by the host, not by its kernels."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def compare(out: torch.Tensor, ref: torch.Tensor):
     """(max_abs, rel_l2, tol_abs, tol_rel, why) of a kernel's output against
     its plain version's, both in the working dtype."""
@@ -115,47 +161,75 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
 def attention_cases():
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
-    # SD 2.1 (5/10/20 heads), SDXL (10/20 heads) at D=64; SD 1.5: 8 heads
+    # SD 2.1 (5/10/20 heads), SDXL (10/20 heads) at D=64; SD 1.5: 8 heads.
+    # Batch 8 is the model check and the resampled direction forwards; the
+    # requests also give 2 (cond/uncond direction forwards) and 3 and 9 (the
+    # view batches of a 2:3 and a square image).
     for S, H, D in ((4096, 5, 64), (1024, 10, 64), (256, 20, 64),
                     (4096, 10, 64), (1024, 20, 64),
                     (4096, 8, 40), (1024, 8, 80), (256, 8, 160)):
-        cases.append(("self", bf, 8, S, S, H, D))
-        cases.append(("cross", bf, 8, S, 77, H, D))
+        for B in (8, 2, 3, 9):
+            cases.append(("self", bf, B, S, S, H, D))
+            cases.append(("cross", bf, B, S, 77, H, D))
     cases.append(("vae_mid", bf, 1, 6144, 6144, 1, 512))
     cases.append(("vae_mid", bf, 1, 9216, 9216, 1, 512))
     cases.append(("vae_mid", f32, 1, 4096, 4096, 1, 512))
     cases.append(("vae_strip", f32, 1, 704, 704, 1, 512))
-    # SDXL decodes in fp32 (force_upcast): 1024x1536 px is 128x192 tokens
+    # SDXL decodes in fp32 (force_upcast): 1024x1536 px is 128x192 tokens,
+    # 1536x1536 px 192x192; its background strips encode at 21 and 22 rows
     cases.append(("vae_mid", f32, 1, 24576, 24576, 1, 512))
+    cases.append(("vae_mid", f32, 1, 36864, 36864, 1, 512))
+    cases.append(("vae_strip", f32, 1, 2688, 2688, 1, 512))
+    cases.append(("vae_strip", f32, 1, 2816, 2816, 1, 512))
     for D in (40, 80, 160):  # the fp32 instantiations, on no path today
         cases.append(("self", f32, 2, 1024, 1024, 8, D))
+    # edges of the wgmma body, on no path: query rows and keys that fill no
+    # tile, one key, one key more than the single tile holds, a ring that
+    # wraps with a ragged tail, and q, k, v as chunks of one fused projection
+    cases.append(("ragged", bf, 2, 300, 200, 3, 64))
+    cases.append(("ragged", bf, 2, 300, 81, 3, 40))
+    cases.append(("ragged", bf, 1, 1000, 1, 2, 80))
+    cases.append(("ragged", bf, 3, 333, 80, 2, 160))
+    cases.append(("ragged", bf, 1, 2000, 1001, 12, 64))
+    cases.append(("fused_qkv", bf, 2, 1024, 1024, 10, 64))
+    cases.append(("fused_qkv", bf, 2, 1024, 1024, 8, 80))
     return cases
 
 
 def run_attention(gen, results):
     import torch.nn.functional as F
     from elasticdiffusion_tpu_torch.kernels.flash_attention import (
-        flash_attention, reference_attention)
+        attention_plan, flash_attention, reference_attention)
     for tag, dtype, B, Sq, Sk, H, D in attention_cases():
-        # q/k/v as the strided head views of (B, S, H*D) projections
-        q = torch.randn(B, Sq, H * D, generator=gen, device="cuda",
-                        dtype=torch.float32).to(dtype).view(B, Sq, H, D)
-        k = torch.randn(B, Sk, H * D, generator=gen, device="cuda",
-                        dtype=torch.float32).to(dtype).view(B, Sk, H, D)
-        v = torch.randn(B, Sk, H * D, generator=gen, device="cuda",
-                        dtype=torch.float32).to(dtype).view(B, Sk, H, D)
+        # q/k/v as the strided head views of (B, S, H*D) projections, or of
+        # the three chunks of one (B, S, 3*H*D) projection
+        if tag == "fused_qkv":
+            q, k, v = (t.view(B, Sq, H, D) for t in torch.randn(
+                B, Sq, 3 * H * D, generator=gen, device="cuda").to(
+                    dtype).chunk(3, dim=-1))
+        else:
+            q, k, v = (torch.randn(B, S, H * D, generator=gen, device="cuda",
+                                   dtype=torch.float32).to(dtype).view(B, S, H, D)
+                       for S in (Sq, Sk, Sk))
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = reference_attention(q, k, v)
         max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
-        ms = time_ms(lambda: flash_attention(q, k, v))
-        plain_ms = time_ms(lambda: reference_attention(q, k, v), 1, 5)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         isz = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz
         ops = 4.0 * B * H * Sq * Sk * D
         b_ms, b_by = bound(nbytes, ops, dtype)
+        reps = (1, 5) if b_ms > 5.0 else (3, 15)  # the long fp32 decodes
+        ms = time_ms(lambda: flash_attention(q, k, v), *reps)
+        plain_ms = time_ms(lambda: reference_attention(q, k, v), 1, 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                         *reps)
+        # short calls again without the host: about 2 ms of launches a replay
+        n = max(1, min(20, int(2.0 / ms)))
+        device_ms = graph_ms(lambda: flash_attention(q, k, v), n)
+        lib_device_ms = graph_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), n)
         results.append({
             "name": f"flash_attention/{tag}_{str(dtype)[6:]}_{B}x{Sq}x{H}x{D}_Sk{Sk}",
             "kernel": "flash_attention", "route": "cuda",
@@ -163,13 +237,34 @@ def run_attention(gen, results):
             "replaces": "elasticdiffusion_tpu/kernels/flash_attention.py:"
                         + ("355" if Sk > 4096 or dtype == torch.float32 else "228"),
             "log_key": ("flash_attention", str(dtype), B, Sq, Sk, H, D),
+            "body": attention_plan(dtype, B, Sq, Sk, H, D).body,
             "max_abs_err": max_abs, "rel_l2_err": rel_l2,
             "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
+            "device_ms": device_ms, "library_device_ms": lib_device_ms,
             "library": "F.scaled_dot_product_attention"})
         del q, k, v, out, ref
         torch.cuda.empty_cache()
+
+
+def attention_host_us(gen):
+    """Host microseconds the attention wrapper takes to enqueue one launch
+    (tensor maps encoded on the host at every launch of the wgmma body),
+    beside the mma.sync body at the same small shape."""
+    from elasticdiffusion_tpu_torch.kernels.flash_attention import flash_attention
+    out = {}
+    for body, H, D in (("wgmma", 20, 64), ("mma.sync", 1, 512)):
+        q = torch.randn(2, 256, H * D, generator=gen, device="cuda").to(
+            torch.bfloat16).view(2, 256, H, D)
+        flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            flash_attention(q, q, q)
+        out[body] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    return out
 
 
 def run_layernorm(gen, results):
@@ -337,6 +432,7 @@ def phase_kernels():
            if not (r["max_abs_err"] <= r["tol_abs"]
                    and r["rel_l2_err"] <= r["tol_rel"])]
     emit({"phase": "kernels",
+          "attention_host_us_per_launch": attention_host_us(gen),
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                          "cudnn": torch.backends.cudnn.allow_tf32},
           "cases": [{k: v for k, v in r.items() if k != "log_key"}
@@ -400,6 +496,7 @@ def phase_model(bundle, path):
         res[mode] = (unet(), bundle.vae_decode(z))
         # steady state, after the first call's cuDNN and cuBLAS set-up
         out[f"unet_ms_{mode}"] = time_ms(unet, 1, 5)
+        out[f"unet_enqueue_ms_{mode}"] = enqueue_ms(unet)
         out[f"decode_ms_{mode}"] = time_ms(lambda: bundle.vae_decode(z), 1, 5)
     bundle.set_use_kernels("auto")
     checks = [("unet", res["auto"][0], res["off"][0]),
@@ -455,9 +552,12 @@ def gate_convs(unet):
                         (3, 3, m.in_channels, m.out_channels))]
 
 
-def phase_requests(pipe, path, steps: int, resampling: int):
+def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     """One main path. Every launch count is set to 0 just before and read
-    just after; comparison launches of the other phases do not count."""
+    just after; comparison launches of the other phases do not count.
+    `checked` is the set of launch-log keys the kernels phase held against a
+    plain version (None when that phase did not run): an attention shape
+    launched here and checked nowhere fails the run."""
     import elasticdiffusion_tpu_torch.kernels as kernels
     wrappers, plain = kernel_counts(), plain_cuda_counts()
     conv_on = path["conv_impl"] == "kernel"
@@ -513,6 +613,9 @@ def phase_requests(pipe, path, steps: int, resampling: int):
     totals = {n: w.launches for n, w in wrappers.items()}
     cudnn_in_gate = sum(m.library_cuda_calls for m in convs)
     expected_conv = len(convs) * unet_calls[0] if conv_on else 0
+    unchecked = {} if checked is None else {
+        "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
+        if key not in checked}
     emit({"phase": "requests", "path": path["name"],
           "sd_version": path["sd_version"], "conv_impl": path["conv_impl"],
           "steps": steps, "resampling_steps": resampling,
@@ -521,7 +624,12 @@ def phase_requests(pipe, path, steps: int, resampling: int):
           "gate_convs_per_unet_call": len(convs),
           "conv3x3_expected_launches": expected_conv,
           "conv3x3_operand_copies": wrappers["conv3x3"].copies,
-          "cudnn_calls_in_gate": cudnn_in_gate})
+          "cudnn_calls_in_gate": cudnn_in_gate,
+          "unchecked_launches": unchecked})
+    unchecked_attention = [k for k in unchecked if k.startswith("flash_attention/")]
+    if unchecked_attention:
+        fail(f"{path['name']}: attention launched at shapes that no kernel "
+             f"case checks: {unchecked_attention}")
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
     if conv_on and cudnn_in_gate:
@@ -582,6 +690,7 @@ def main(argv=None) -> int:
             print(f"--- nvcc {name} ---\n{log}", file=sys.stderr)
 
     cases = phase_kernels() if "kernels" in phases else []
+    checked = {r["log_key"] for r in cases} if "kernels" in phases else None
 
     logs, totals = {}, collections.Counter()
     if "model" in phases or "requests" in phases:
@@ -607,7 +716,7 @@ def main(argv=None) -> int:
                 pipe = ElasticDiffusion(device="cuda", bundle=bundle,
                                         sd_version=path["sd_version"])
                 logs[path["name"]], t = phase_requests(
-                    pipe, path, opt.steps, opt.resampling_steps)
+                    pipe, path, opt.steps, opt.resampling_steps, checked)
                 totals.update(t)
                 del pipe
             # one bundle at a time on the card
@@ -617,12 +726,14 @@ def main(argv=None) -> int:
 
     listed = []
     if "kernels" in phases and "requests" in phases:
+        seen = set()
         for r in cases:
             by_path = {name: log.get(r["log_key"], 0)
                        for name, log in logs.items()}
             n = sum(by_path.values())
-            if n == 0:
-                continue  # checked above, but not a shape of these runs
+            if n == 0 or r["log_key"] in seen:
+                continue  # not a shape of these runs, or its second layout
+            seen.add(r["log_key"])
             listed.append({"name": r["name"], "route": r["route"],
                            "source": r["source"], "replaces": r["replaces"],
                            "launches": n, "launches_by_path": by_path,
@@ -630,6 +741,9 @@ def main(argv=None) -> int:
                            "ms": r["ms"], "plain_ms": r["plain_ms"],
                            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                            "library_ms": r["library_ms"]})
+            for extra in ("body", "device_ms", "library_device_ms"):
+                if extra in r:
+                    listed[-1][extra] = r[extra]
         for kernel in totals:
             if not any(e["name"].startswith(kernel + "/") for e in listed):
                 fail(f"{kernel}: none of the checked shapes ran on a main path")

@@ -19,30 +19,86 @@
 // bf16 inputs P is rounded to bf16 before P.V while the denominator sums
 // the unrounded fp32 P.
 //
-// Two bodies share the softmax phase:
-//   flash_mma_bf16  bf16 inputs, mma.sync m16n8k16 tensor-core products
-//                   with fp32 accumulation.
-//   flash_fma       fp32 inputs, full-precision FMA products on the CUDA
-//                   cores (the fp32 path exists for precision; TF32 would
-//                   defeat it).
-// A block owns BM query rows. Per key tile: (1) S = Q K^T goes to shared
-// memory, (2) all threads run the online-softmax update row by row and
-// leave P in shared memory, (3) O += P V with the D columns of the
-// accumulator split across the warps of the block. Step (3) is what lets a
-// D = 512 accumulator (the VAE mid attention) live in registers: no thread
-// holds more than 64 of its floats.
+// Three bodies:
+//   flash_wgmma_bf16  bf16 inputs, head dims 64 (every UNet attention of
+//                     SD 2.x and SDXL) and 40 / 80 / 160 (SD 1.x UNet, 8
+//                     heads per block), self and cross: the body designed
+//                     for this card, described below.
+//   flash_mma_bf16    bf16 inputs, head dim 512 (VAE mid block): mma.sync
+//                     m16n8k16 tensor-core products with fp32 accumulation.
+//   flash_fma_f32     fp32 inputs, full-precision FMA products on the CUDA
+//                     cores (the fp32 path exists for precision; TF32 would
+//                     defeat it).
 //
-// Head dims: 64 (SD 2.x / SDXL UNet), 512 (VAE mid block) and 40 / 80 / 160
-// (SD 1.x UNet, 8 heads per block). A head dim that is not a multiple of the
-// tile step is padded with zeros in shared memory only (40 -> 48 columns for
-// the k-step 16 of mma; 40 -> 64 and 80 -> 96 for the 32 lanes of the fp32
-// body): global rows keep their true width, pad columns add exact zeros to
-// Q.K^T, and the pad columns of O are never stored.
+// Bound on this card: operations (4*B*H*Sq*Sk*D over the bf16 tensor-core
+// peak) for self-attention; the q and output bytes for cross-attention
+// (Sk = 77). At D = 64 a 128-key tile costs the tensor cores and the
+// exponential unit about the same number of cycles, so the two must overlap.
 //
-// Bound on this card: operations (4*B*H*Sq*Sk*D) for the self-attention
-// shapes; the design reaches the tensor cores through mma.sync only. wgmma,
-// TMA loads and a pipelined K/V ring are the known next steps.
+// flash_wgmma_bf16, and what each part does about that bound:
+//   * Both products are wgmma.mma_async. A consumer warpgroup owns 64 query
+//     rows. S = Q K^T reads Q and K from shared memory, both K-major (D
+//     contiguous, as the (B, S, H*D) projections give them). O += P V takes
+//     P from registers: the fp32 accumulator layout of S, packed to bf16
+//     pairs, is the A-fragment layout of the next wgmma; V is read from
+//     shared memory as the MN-major (transposed) B operand. S and P never
+//     pass through shared memory.
+//   * The softmax runs in registers. A thread holds two rows' slices of S;
+//     the row max is a 4-lane shuffle inside the quad; the running max and
+//     the per-thread partial denominator stay in registers (the quad sum of
+//     the denominator is taken once, at the end); O is rescaled in registers
+//     after wgmma.wait_group.
+//   * One elected thread of a producer warpgroup loads Q once and the K and V
+//     tiles into a ring of stages with TMA (cp.async.bulk.tensor.4d on a
+//     (D, H, S, B) tensor map built from the strides of the views, 128-byte
+//     swizzle, rows past the end of a sequence filled with zeros). Each stage
+//     has a full and an empty mbarrier. Loads, tensor cores and the
+//     exponential unit run at the same time: inside a warpgroup S of tile j
+//     and P V of tile j-1 are in flight while the softmax of tile j runs, and
+//     the two consumer warpgroups of a block interleave freely.
+//   * With two consumer warpgroups (128 query rows, one block per SM) the
+//     producer gives its registers to the consumers (setmaxnreg, 24 and 240).
+//     With one (64 query rows and 64-key tiles, two blocks per SM, one at
+//     D = 160; chosen by the wrapper when 128-row blocks would leave SMs
+//     idle) the registers a thread starts with are enough.
+//   * Self-attention uses 128-key tiles and a ring of 3 stages; Sk <= 80 (the
+//     77 text tokens) is one tile of 80 keys (wgmma N = 80), no ring, and
+//     64-row blocks, two on an SM, because that chain of one load, two small
+//     products and one store is bound by latency. Keys past Sk are masked to
+//     -inf before the max, so a ragged last tile needs no second code path.
+//     Rows past Sq are computed on zeros and not stored.
+//   * Other head dims run in the same 64-column (128-byte) rows. The tensor
+//     map's innermost dim is D and its box 64 wide, so TMA fills the columns
+//     of a box past D with zeros (the next head is another coordinate, not
+//     the next column). D = 40 is one such slab: Q K^T takes 3 k-steps
+//     instead of 4, P V is a wgmma of N = 40 on the first 40 columns of V's
+//     rows, and 40 columns are stored. D = 80 and 160 are 2 and 3 slabs, each
+//     a tile of its own: k-step ks of Q K^T reads slab ks / 4, and P V is one
+//     wgmma per slab (N = 64, 64, 32 or 64, 16) into its own accumulators. A
+//     narrow last slab wastes shared memory, not time; D = 160 uses 64-key
+//     tiles so that the ring still fits.
+//   * Output: registers to global memory with masked 4-byte stores (a quad
+//     writes 16 contiguous bytes of a row, the two n-tiles of a 32-byte
+//     sector back to back). A TMA store through shared memory is not used.
+//   * A barrier wait that outlasts some seconds traps: a fault in the
+//     protocol is a CUDA error at the next synchronise, not a hang.
+//
+// The other two bodies share one structure, that of the port's first
+// attention kernel; it stays for head dim 512, whose accumulator no
+// warpgroup can hold, and for fp32. A block owns BM query rows. Per key tile:
+// (1) S = Q K^T goes to shared memory, (2) all threads run the online-softmax
+// update row by row and leave P in shared memory, (3) O += P V with the D
+// columns of the accumulator split across the warps of the block. Step (3)
+// is what lets a D = 512 accumulator (the VAE mid attention) live in
+// registers: no thread holds more than 64 of its floats.
+//
+// Head dims of those bodies: 512 (VAE mid block) and, in fp32, 40 / 64 / 80 /
+// 160 too. A head dim that is not a multiple of the tile step is padded with
+// zeros in shared memory only (40 -> 64 and 80 -> 96 for the 32 lanes of the
+// fp32 body): global rows keep their true width, pad columns add exact zeros
+// to Q.K^T, and the pad columns of O are never stored.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -306,6 +362,590 @@ __global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, head dim 64: wgmma + TMA body
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of the given parity has completed. A wait that
+// outlasts 2^33 cycles (seconds) traps.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0, spins = 0;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((++spins & 0x3ffu) == 0 && clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// One box of a (D, H, S, B) tensor map into shared memory; completion is
+// counted in bytes on the mbarrier.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile whose rows are 128 bytes (64
+// bf16) under the 128-byte swizzle: groups of 8 rows lie 1024 bytes apart.
+// That stride goes into both offset fields: K-major operands (Q, K: the row
+// is the reduction dim) read it as the stride offset and ignore the leading
+// offset; for the MN-major operand (V: the row index is the reduction dim)
+// it is again the distance between 8-row groups, and the other field (the
+// distance between 64-column slabs) is unused at N = 64.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
+  uint64_t d = static_cast<uint64_t>((smem_u32(p) & 0x3ffffu) >> 4);
+  d |= static_cast<uint64_t>(1024 >> 4) << 16;
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;
+  d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers that an asynchronous wgmma reads or writes: ordinary code
+// that uses them stays behind this point, and their live range reaches it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D (64 x N, fp32 registers) = or += A (64 x 16, shared) * B (16 x N, shared),
+// both K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<80>(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N) += A (64 x 16, bf16 pairs in registers) * B (16 x N, shared,
+// MN-major: rows are the reduction dim); N = 64, or the first 40, 32 or 16
+// columns of the 64-wide rows.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n40(float* d, uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float* d, uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 40 || N == 32 || N == 16, "slab width");
+  if constexpr (N == 64) wgmma_rs_n64(d, a0, a1, a2, a3, db);
+  if constexpr (N == 40) wgmma_rs_n40(d, a0, a1, a2, a3, db);
+  if constexpr (N == 32) wgmma_rs_n32(d, a0, a1, a2, a3, db);
+  if constexpr (N == 16) wgmma_rs_n16(d, a0, a1, a2, a3, db);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D is the true head dim. Shared-memory rows are 64 columns (128 bytes, one
+// swizzle span) wide: a head dim above 64 is cut into slabs of 64 columns,
+// each a tile of its own, and what a slab holds past column D is zeros.
+// NCWG consumer warpgroups (64 query rows each) and one producer warpgroup;
+// BN keys per tile; STAGES (K, V) tiles in the ring.
+template <int D, int NCWG, int BN, int STAGES>
+struct WgCfg {
+  static constexpr int NSLAB = (D + 63) / 64;
+  static constexpr int BM = 64 * NCWG;
+  static constexpr int THREADS = 128 * (NCWG + 1);
+  // Three warpgroups start with 168 registers a thread; the producer hands
+  // its share to the consumers. Two warpgroups run two blocks on an SM with
+  // 128 registers a thread where O, S and P fit them (the compiler does not
+  // raise its budget past a bound set for two blocks), else one.
+  static constexpr bool REBALANCE = NCWG == 2;
+  static constexpr int MIN_BLOCKS =
+      (NCWG == 1 && D / 2 + BN / 2 + BN / 4 <= 96) ? 2 : 1;
+  static constexpr int REGS_PRODUCER = 24;
+  static constexpr int REGS_CONSUMER = 240;
+  static constexpr int Q_SLAB = BM * 128, Q_BYTES = NSLAB * Q_SLAB;
+  static constexpr int SLAB = BN * 128, TILE_BYTES = NSLAB * SLAB;
+  // 1024 bytes of slack to align the tiles, 128 bytes of barriers
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + (size_t)STAGES * 2 * TILE_BYTES + 128;
+  static_assert(D % 8 == 0 && NSLAB <= 3, "head dim");
+  static_assert(SLAB % 1024 == 0 && (1 + 2 * STAGES) * 8 <= 128, "smem");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// columns of slab `i` of a head dim D that hold values
+template <int D>
+__host__ __device__ constexpr int slab_width(int i) {
+  return D - 64 * i < 64 ? D - 64 * i : 64;
+}
+
+// One key tile of the online softmax on the accumulator registers of S: a
+// thread holds columns 8j + 2(lane % 4) + {0, 1} of rows lane / 4 (s[4j],
+// s[4j+1]) and lane / 4 + 8 (s[4j+2], s[4j+3]) of its warp's 16 rows. Leaves
+// the fp32 P in s, the rescale factors of the two rows in a0 and a1, and
+// updates the running max m and the thread's partial denominator l.
+template <int NS>
+__device__ __forceinline__ void softmax_regs(float (&s)[NS], int valid,
+                                             float c, float& m0, float& m1,
+                                             float& l0, float& l1, float& a0,
+                                             float& a1, int lane) {
+  if (valid < NS * 2) {  // ragged last tile: keys past Sk leave the max and sum
+    const int col0 = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+      if (8 * j + col0 >= valid) s[4 * j] = s[4 * j + 2] = -INFINITY;
+      if (8 * j + col0 + 1 >= valid) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+    }
+  }
+  float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    t0 = fmaxf(t0, fmaxf(s[4 * j], s[4 * j + 1]));
+    t1 = fmaxf(t1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
+  t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
+  t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
+  t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
+  const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+  a0 = ex2((m0 - n0) * c);  // 0 on the first tile
+  a1 = ex2((m1 - n1) * c);
+  m0 = n0;
+  m1 = n1;
+  const float b0 = -n0 * c, b1 = -n1 * c;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], c, b0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], c, b0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], c, b1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], c, b1));
+    sum0 += s[4 * j] + s[4 * j + 1];
+    sum1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+}
+
+// S = Q K^T of one key tile: ceil(D / 16) k-steps of 16 head dims; k-step ks
+// lies in slab ks / 4, 32 * (ks % 4) bytes inside the swizzled 128-byte rows
+// (the last k-step of D = 40 is half zeros).
+template <int D, int BN>
+__device__ __forceinline__ void start_s(float (&s)[BN / 2],
+                                        const unsigned char* q_rows,
+                                        int q_slab_bytes,
+                                        const unsigned char* k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < (D + 15) / 16; ++ks) {
+    const uint64_t q_desc = smem_desc_sw128(q_rows + (ks / 4) * q_slab_bytes);
+    const uint64_t k_desc = smem_desc_sw128(k_tile + (ks / 4) * BN * 128);
+    wgmma_ss<BN>(s, q_desc + 2 * (ks % 4), k_desc + 2 * (ks % 4), ks > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one key tile: BN / 16 k-steps of 16 keys (16 rows of V, 2048
+// bytes), each one wgmma per slab of V's columns; the accumulators of slab i
+// are o[32 i ...].
+template <int D, int BN>
+__device__ __forceinline__ void start_pv(float (&o)[D / 2],
+                                         const uint32_t (&pk)[BN / 4],
+                                         const unsigned char* v_tile) {
+  constexpr int NSLAB = (D + 63) / 64;
+#pragma unroll
+  for (int ks = 0; ks < BN / 16; ++ks) {
+    const uint32_t a0 = pk[4 * ks], a1 = pk[4 * ks + 1], a2 = pk[4 * ks + 2],
+                   a3 = pk[4 * ks + 3];
+    wgmma_rs<slab_width<D>(0)>(o, a0, a1, a2, a3,
+                               smem_desc_sw128(v_tile) + 128 * ks);
+    if constexpr (NSLAB > 1)
+      wgmma_rs<slab_width<D>(1)>(
+          o + 32, a0, a1, a2, a3,
+          smem_desc_sw128(v_tile + BN * 128) + 128 * ks);
+    if constexpr (NSLAB > 2)
+      wgmma_rs<slab_width<D>(2)>(
+          o + 64, a0, a1, a2, a3,
+          smem_desc_sw128(v_tile + 2 * BN * 128) + 128 * ks);
+  }
+  wgmma_commit();
+}
+
+// The accumulator layout of S, rounded to bf16 pairs, is the A fragment of
+// the next wgmma.
+template <int NS>
+__device__ __forceinline__ void pack_p(const float (&s)[NS],
+                                       uint32_t (&pk)[NS / 2]) {
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) pk[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+template <int D, int NCWG, int BN, int STAGES>
+__global__ void __launch_bounds__(WgCfg<D, NCWG, BN, STAGES>::THREADS,
+                                  WgCfg<D, NCWG, BN, STAGES>::MIN_BLOCKS)
+    flash_wgmma_bf16(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, AttnParams p) {
+  using Cfg = WgCfg<D, NCWG, BN, STAGES>;
+  constexpr int BM = Cfg::BM, TILE_BYTES = Cfg::TILE_BYTES,
+                NSLAB = Cfg::NSLAB;
+  constexpr int NS = BN / 2;  // fp32 registers of S per thread
+
+  extern __shared__ unsigned char smem_dyn[];
+  // the swizzle works on address bits: tiles start on 1024-byte boundaries
+  unsigned char* base =
+      smem_dyn + ((1024u - (smem_u32(smem_dyn) & 1023u)) & 1023u);
+  unsigned char* Qs = base;                  // NSLAB slabs of BM rows
+  unsigned char* KVs = base + Cfg::Q_BYTES;  // stage s: K, then V, in slabs
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(KVs + STAGES * 2 * TILE_BYTES);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (p.Sk + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCWG * 4);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == NCWG) {
+    // ---- producer: the whole lifetime of this warpgroup ----
+    if (Cfg::REBALANCE)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          Cfg::REGS_PRODUCER));
+    if (threadIdx.x == NCWG * 128) {
+      mbar_arrive_expect_tx(q_bar, Cfg::Q_BYTES);
+#pragma unroll
+      for (int i = 0; i < NSLAB; ++i)
+        tma_load_4d(Qs + i * Cfg::Q_SLAB, &tq, q_bar, 64 * i, h, q0, b);
+      for (int j = 0; j < nt; ++j) {
+        const int st = j % STAGES;
+        const uint32_t use = j / STAGES;
+        // the first time round the ring every stage is free
+        mbar_wait(&empty[st], (use & 1u) ^ 1u);
+        mbar_arrive_expect_tx(&full[st], 2 * TILE_BYTES);
+        unsigned char* ks = KVs + st * 2 * TILE_BYTES;
+#pragma unroll
+        for (int i = 0; i < NSLAB; ++i) {
+          tma_load_4d(ks + i * Cfg::SLAB, &tk, &full[st], 64 * i, h, j * BN, b);
+          tma_load_4d(ks + TILE_BYTES + i * Cfg::SLAB, &tv, &full[st], 64 * i,
+                      h, j * BN, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer: 64 query rows ----
+    if (Cfg::REBALANCE)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+          Cfg::REGS_CONSUMER));
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const unsigned char* q_rows = Qs + wg * 64 * 128;
+
+    float o[D / 2], s[NS];
+    uint32_t pk[NS / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
+
+    mbar_wait(q_bar, 0);
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    start_s<D, BN>(s, q_rows, Cfg::Q_SLAB, KVs);
+    wgmma_wait<0>();
+    pin(s);
+    softmax_regs<NS>(s, p.Sk, p.c, m0, m1, l0, l1, a0, a1, lane);
+    pack_p<NS>(s, pk);
+
+    for (int j = 1; j < nt; ++j) {
+      const int st = j % STAGES, prev = (j - 1) % STAGES;
+      mbar_wait(&full[st], (j / STAGES) & 1);
+      wgmma_fence();
+      // S of tile j, and behind it in the tensor cores O += P V of tile j-1
+      start_s<D, BN>(s, q_rows, Cfg::Q_SLAB, KVs + st * 2 * TILE_BYTES);
+      start_pv<D, BN>(o, pk, KVs + prev * 2 * TILE_BYTES + TILE_BYTES);
+      wgmma_wait<1>();  // S is there; P V runs under the softmax
+      pin(s);
+      softmax_regs<NS>(s, p.Sk - j * BN, p.c, m0, m1, l0, l1, a0, a1, lane);
+      wgmma_wait<0>();
+      pin(o);
+      pin(pk);
+      pin(s);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= a0;
+        o[4 * i + 1] *= a0;
+        o[4 * i + 2] *= a1;
+        o[4 * i + 3] *= a1;
+      }
+      pack_p<NS>(s, pk);
+    }
+    wgmma_fence();
+    start_pv<D, BN>(o, pk,
+                    KVs + ((nt - 1) % STAGES) * 2 * TILE_BYTES + TILE_BYTES);
+    wgmma_wait<0>();
+    pin(o);
+    pin(pk);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    const int row_lo = q0 + wg * 64 + warp * 16 + (lane >> 2);
+    const int row_hi = row_lo + 8;
+    bf16* op = static_cast<bf16*>(p.o) + h * D + 2 * (lane & 3);
+    bf16* dst_lo = op + ((long long)b * p.Sq + row_lo) * p.H * D;
+    bf16* dst_hi = op + ((long long)b * p.Sq + row_hi) * p.H * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      if (row_lo < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dst_lo + 8 * i) =
+            __floats2bfloat162_rn(o[4 * i] * i0, o[4 * i + 1] * i0);
+      if (row_hi < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(dst_hi + 8 * i) =
+            __floats2bfloat162_rn(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: full-precision FMA body
 // ---------------------------------------------------------------------------
 
@@ -468,20 +1108,101 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int bm,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime; its address
+// is fetched through the runtime, so the library links against nothing but
+// cudart.
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled_entry() {
+  static EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
+      ptr = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(ptr);
+  }();
+  return fn;
+}
+
+// Tensor map of one bf16 (B, S, H, D) view, innermost dim first: (D, H, S,
+// B) with the view's strides, boxes of 64 columns and `rows` sequence
+// positions of one head, 128-byte swizzle. What a box holds outside the
+// tensor is filled with zeros: rows past S, and for D = 40 columns 40-63
+// (the next head is another coordinate, not the next column).
+bool make_tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                     int D, long long sb, long long ss, long long sh,
+                     int rows) {
+  EncodeTiledFn encode = encode_tiled_entry();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  // a dim of size 1 is never stepped over: any legal stride does
+  const cuuint64_t strides[3] = {
+      (cuuint64_t)(H > 1 ? sh : 64) * sizeof(bf16),
+      (cuuint64_t)(S > 1 ? ss : 64) * sizeof(bf16),
+      (cuuint64_t)(B > 1 ? sb : 64) * sizeof(bf16)};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor maps are encoded on the host at every launch and travel by
+// value in the kernel's parameters.
+template <int D, int NCWG, int BN, int STAGES>
+cudaError_t launch_wgmma(const AttnParams& p, cudaStream_t stream) {
+  using Cfg = WgCfg<D, NCWG, BN, STAGES>;
+  if (STAGES == 1 && p.Sk > BN) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!make_tensor_map(&tq, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh,
+                       Cfg::BM) ||
+      !make_tensor_map(&tk, p.k, p.B, p.Sk, p.H, D, p.k_sb, p.k_ss, p.k_sh,
+                       BN) ||
+      !make_tensor_map(&tv, p.v, p.B, p.Sk, p.H, D, p.v_sb, p.v_ss, p.v_sh,
+                       BN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_wgmma_bf16<D, NCWG, BN, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Sq + Cfg::BM - 1) / Cfg::BM, p.H, p.B);
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* ed_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = bf16, 1 = fp32. Returns a cudaError_t, or -1 for a
-// (dtype, head dim) pair that has no instantiation.
+// dtype: 0 = bf16, 1 = fp32. plan: 0 = the mma.sync (bf16) or FMA (fp32) body
+// of the head dim; 1-3 = the wgmma body (bf16, D = 40, 64, 80 or 160): 128
+// query rows a block and a ring of 128-key (D = 160: 64-key) tiles (1), 64
+// query rows and a ring of 64-key tiles (2), or 64 query rows and one tile of
+// at most 80 keys (3). Returns a cudaError_t, or -1 for a (dtype, head dim,
+// plan) that has no instantiation.
 extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int Sq, int Sk, int H, int D,
                                   long long q_sb, long long q_ss, long long q_sh,
                                   long long k_sb, long long k_ss, long long k_sh,
                                   long long v_sb, long long v_ss, long long v_sh,
-                                  int dtype, float scale_log2e, void* stream) {
+                                  int dtype, float scale_log2e, int plan,
+                                  void* stream) {
   AttnParams p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H;
@@ -490,21 +1211,26 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.c = scale_log2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) {
-    using Cfg = MmaCfg<64, 64, 64, 2>;
-    return (int)launch(flash_mma_bf16<64, 64, 64, 2>, Cfg::SMEM, Cfg::THREADS,
-                       64, p, st);
+  if (plan != 0) {
+    if (dtype != 0) return -1;
+// per head dim: keys a tile and stages of plan 1, stages of plan 2
+#define ED_FLASH_WGMMA(DD, BN1, ST1, ST2)                                     \
+  if (D == DD) {                                                              \
+    if (plan == 1) return (int)launch_wgmma<DD, 2, BN1, ST1>(p, st);          \
+    if (plan == 2) return (int)launch_wgmma<DD, 1, 64, ST2>(p, st);           \
+    if (plan == 3) return (int)launch_wgmma<DD, 1, 80, 1>(p, st);             \
+  }
+    ED_FLASH_WGMMA(40, 128, 3, 4)
+    ED_FLASH_WGMMA(64, 128, 3, 4)
+    ED_FLASH_WGMMA(80, 128, 3, 2)
+    ED_FLASH_WGMMA(160, 64, 3, 2)
+#undef ED_FLASH_WGMMA
+    return -1;
   }
   if (dtype == 0 && D == 512) {
     using Cfg = MmaCfg<512, 32, 32, 4>;
     return (int)launch(flash_mma_bf16<512, 32, 32, 4>, Cfg::SMEM, Cfg::THREADS,
                        32, p, st);
-  }
-#define ED_FLASH_BF16(DD)                                                     \
-  if (dtype == 0 && D == DD) {                                                \
-    using Cfg = MmaCfg<DD, 64, 64, 2>;                                        \
-    return (int)launch(flash_mma_bf16<DD, 64, 64, 2>, Cfg::SMEM,              \
-                       Cfg::THREADS, 64, p, st);                              \
   }
 #define ED_FLASH_F32(DD)                                                      \
   if (dtype == 1 && D == DD) {                                                \
@@ -512,13 +1238,9 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
     return (int)launch(flash_fma_f32<DD, 64, 64>, Cfg::SMEM, Cfg::THREADS,    \
                        64, p, st);                                            \
   }
-  ED_FLASH_BF16(40)
-  ED_FLASH_BF16(80)
-  ED_FLASH_BF16(160)
   ED_FLASH_F32(40)
   ED_FLASH_F32(80)
   ED_FLASH_F32(160)
-#undef ED_FLASH_BF16
 #undef ED_FLASH_F32
   if (dtype == 1 && D == 64) {
     using Cfg = FmaCfg<64, 64, 64>;

@@ -2,25 +2,34 @@
 
 Replaces the Pallas TPU kernels of
 ``elasticdiffusion_tpu/kernels/flash_attention.py`` (``_oneshot_attention``,
-``_flash_kernel_bf16_nn``, ``_flash_kernel``) with one CUDA C++ kernel,
-``csrc/flash_attention.cu``: an online-softmax loop over key tiles, tensor
-cores (``mma.sync``) for bf16 and full-precision FMAs for fp32, instantiated
-for head dims 64 (the SD 2.x / SDXL UNet), 512 (the VAE mid block) and
-40 / 80 / 160 (the SD 1.x UNet: 8 heads at 320 / 640 / 1280 channels; the
-kernel pads 40 to its tile step with zeros in shared memory).
+``_flash_kernel_bf16_nn``, ``_flash_kernel``) with one CUDA C++ source,
+``csrc/flash_attention.cu``: an online-softmax loop over key tiles in three
+bodies. bf16 at head dim 64 (every UNet attention of SD 2.x and SDXL, self
+and cross) and at head dims 40 / 80 / 160 (the SD 1.x UNet: 8 heads at 320 /
+640 / 1280 channels; cut into slabs of 64 columns that the TMA load pads with
+zeros) runs the body designed for Hopper: both products are ``wgmma``, K and
+V arrive by TMA in a ring of shared-memory stages guarded by ``mbarrier``s, a
+producer warpgroup loads while consumer warpgroups compute, and the softmax
+stays in the accumulator registers. bf16 at head dim 512 (the VAE mid block)
+runs the ``mma.sync`` body, fp32 the full-precision FMA body.
 
 Bound on this card: operations, ``4*B*H*Sq*Sk*D``, against the bf16 tensor
 core peak (fp32: the CUDA-core peak); for cross-attention (Sk = 77) the q and
-output bytes. See the source for what the design does about it.
+output bytes. At head dim 64 the exponentials of a key tile cost about as
+many cycles as its two products, so the ``wgmma`` body overlaps them: see the
+source for how. ``attention_plan`` picks the body and its tile as a pure
+function of the shape.
 
 Layout ``(B, S, H, D)``. Strided views are taken as they are when the last
-dim is contiguous and the other strides keep 16-byte alignment.
+dim is contiguous and the other strides keep 16-byte alignment (which is also
+what a TMA tensor map asks of them).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +38,65 @@ from . import build, note_launch
 HEAD_DIMS = (40, 64, 80, 160, 512)
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+# bf16 head dims of the wgmma body: (keys a tile, stages) of the 128-row
+# block, stages of the 64-row block with 64-key tiles
+WGMMA_TILES = {40: ((128, 3), 4), 64: ((128, 3), 4), 80: ((128, 3), 2),
+               160: ((64, 3), 2)}
+WGMMA_HEAD_DIMS = tuple(WGMMA_TILES)
+SM_COUNT = 132            # H100 SXM
+SMEM_PER_BLOCK = 232448   # bytes of shared memory one block may use
+
+
+class AttentionPlan(NamedTuple):
+    """What one launch runs: the body, its tile and what that costs."""
+    body: str        # 'wgmma', 'mma.sync' or 'fma'
+    code: int        # the C entry's ``plan`` argument
+    bm: int          # query rows of a block
+    bn: int          # keys of a tile
+    stages: int      # (K, V) tiles in flight in shared memory
+    threads: int
+    smem_bytes: int
+    blocks: int      # grid size
+
+
+def attention_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int,
+                   D: int) -> AttentionPlan:
+    """The body and tile of ``flash_attention`` for one shape; mirrors the
+    configurations instantiated in ``csrc/flash_attention.cu``."""
+    if dtype not in _DTYPES or D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention has no kernel for {dtype}, head dim {D}")
+    if dtype == torch.bfloat16 and D in WGMMA_TILES:
+        (bn1, stages1), stages2 = WGMMA_TILES[D]
+        if Sk <= 80:
+            # the 77 text tokens: one tile of 80 keys, no ring, 64-row blocks
+            # (the chain load, products, store is bound by latency)
+            code, bm, bn, stages = 3, 64, 80, 1
+        elif B * H * -(-Sq // 128) >= SM_COUNT:
+            # two consumer warpgroups
+            code, bm, bn, stages = 1, 128, bn1, stages1
+        else:
+            # 128-row blocks would leave SMs idle: one consumer warpgroup,
+            # 64-key tiles
+            code, bm, bn, stages = 2, 64, 64, stages2
+        # slabs of 64 columns (128-byte rows) whatever D; 1024 bytes of slack
+        # to align the tiles; 128 bytes of barriers
+        nslab = -(-D // 64)
+        smem = 1024 + nslab * 128 * (bm + stages * 2 * bn) + 128
+        return AttentionPlan("wgmma", code, bm, bn, stages, 128 + 2 * bm, smem,
+                             B * H * -(-Sq // bm))
+    bm = bn = 32 if D == 512 else 64
+    if dtype == torch.bfloat16:              # D = 512 only
+        wg = 4                               # warps that share a row group
+        ld = -(-D // 16) * 16 + 8
+        smem = (bm * ld + 2 * bn * ld + bm * (bn + 8)) * 2 \
+            + (bm * (bn + 1) + 3 * bm) * 4
+        return AttentionPlan("mma.sync", 0, bm, bn, 1, bm // 16 * wg * 32,
+                             smem, B * H * -(-Sq // bm))
+    dp = -(-D // 32) * 32
+    smem = (bm * (dp + 1) + bn * (dp + 1) + bn * dp + bm * (bn + 1) + 3 * bm) * 4
+    return AttentionPlan("fma", 0, bm, bn, 1, 256, smem, B * H * -(-Sq // bm))
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,7 +116,8 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _strided_ok(t: torch.Tensor) -> bool:
     align = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % align == 0 for s in t.stride()[:-1]))
+            and all(s % align == 0 and (s > 0 or n == 1)
+                    for n, s in zip(t.shape[:-1], t.stride()[:-1])))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -71,6 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                    f"(built: {HEAD_DIMS})")
     if D not in HEAD_DIMS:
         raise NotImplementedError(unsupported)
+    plan = attention_plan(q.dtype, B, Sq, Sk, H, D)
     q, k, v = (t if _strided_ok(t) else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lib = build.load("flash_attention")
@@ -79,7 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -87,7 +158,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                   q.stride(0), q.stride(1), q.stride(2),
                   k.stride(0), k.stride(1), k.stride(2),
                   v.stride(0), v.stride(1), v.stride(2),
-                  _DTYPES[q.dtype], _LOG2E / math.sqrt(D), stream)
+                  _DTYPES[q.dtype], _LOG2E / math.sqrt(D), plan.code, stream)
     build.check(lib, code, "flash_attention", unsupported)
     flash_attention.launches += 1
     note_launch("flash_attention", str(q.dtype), B, Sq, Sk, H, D)
