@@ -5,15 +5,19 @@
     python3 chip_smoke.py --phases kernels    # build + kernel checks only
     python3 chip_smoke.py --paths sd15 --log smoke.jsonl   # one path; the
                                               # JSON lines also go to a file
+    python3 chip_smoke.py --phases device,build,kernels --cases 'conv3x3/sd15'
+                                              # only the kernel cases whose
+                                              # name matches a regex
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
   device    the card (nvidia-smi name and power limit), torch and CUDA
   build     nvcc builds every kernel from the sources in this checkout
   kernels   every kernel against its plain PyTorch version at the shapes
-            the main paths give it, with times from CUDA events (attention
-            also replayed from a CUDA graph: `device_ms`, the kernel without
-            the host that launches it)
+            the main paths give it, with times from CUDA events; attention
+            and conv3x3 also replayed from a CUDA graph (`device_ms`, the
+            kernel without the host that launches it), with the plan each
+            shape ran (body, tile, splits)
   model     per bundle, one full-width batch-8 UNet forward and one VAE
             decode with the kernels against the same modules with the plain
             versions; for the bundles that run the conv kernel, the forward
@@ -24,7 +28,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
             default conv_impl='cudnn'; launch counts are set to 0 just before
             each path and read just after; `unchecked_launches` lists the
             shapes a path launched that the kernels phase did not check, and
-            an attention shape among them fails the run
+            an attention or conv3x3 shape among them fails the run
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the main paths, error, time and bound. A
@@ -201,6 +205,8 @@ def run_attention(gen, results):
     from elasticdiffusion_tpu_torch.kernels.flash_attention import (
         attention_plan, flash_attention, reference_attention)
     for tag, dtype, B, Sq, Sk, H, D in attention_cases():
+        if not wanted(f"flash_attention/{tag}_{str(dtype)[6:]}_{B}x{Sq}x{H}x{D}_Sk{Sk}"):
+            continue
         # q/k/v as the strided head views of (B, S, H*D) projections, or of
         # the three chunks of one (B, S, 3*H*D) projection
         if tag == "fused_qkv":
@@ -230,6 +236,7 @@ def run_attention(gen, results):
         device_ms = graph_ms(lambda: flash_attention(q, k, v), n)
         lib_device_ms = graph_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt), n)
+        plan = attention_plan(dtype, B, Sq, Sk, H, D)
         results.append({
             "name": f"flash_attention/{tag}_{str(dtype)[6:]}_{B}x{Sq}x{H}x{D}_Sk{Sk}",
             "kernel": "flash_attention", "route": "cuda",
@@ -237,7 +244,7 @@ def run_attention(gen, results):
             "replaces": "elasticdiffusion_tpu/kernels/flash_attention.py:"
                         + ("355" if Sk > 4096 or dtype == torch.float32 else "228"),
             "log_key": ("flash_attention", str(dtype), B, Sq, Sk, H, D),
-            "body": attention_plan(dtype, B, Sq, Sk, H, D).body,
+            "body": plan.body, "splits": plan.splits,
             "max_abs_err": max_abs, "rel_l2_err": rel_l2,
             "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -274,6 +281,8 @@ def run_layernorm(gen, results):
     dtype = torch.bfloat16
     for N, C in ((8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280),
                  (8 * 4096, 640), (8 * 1024, 1280)):   # the last two: SDXL
+        if not wanted(f"fused_layer_norm/bfloat16_{N}x{C}"):
+            continue
         x = (torch.randn(N, C, generator=gen, device="cuda") * 1.5 + 0.3).to(dtype)
         w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
         b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
@@ -306,6 +315,8 @@ def run_groupnorm(gen, results):
     shapes = ((8, 64, 64, 320), (8, 32, 32, 1280), (8, 64, 64, 960),
               (1, 512, 768, 128), (8, 128, 128, 320), (8, 64, 64, 640))
     for B, H, W, C in shapes:
+        if not wanted(f"fused_group_norm/bfloat16_{B}x{H}x{W}x{C}"):
+            continue
         x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 1.5
              + 0.3).to(dtype)
         w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
@@ -355,14 +366,19 @@ def conv_cases():
             (16, 2560, 1280), (8, 2560, 1280), (16, 640, 1280),
             (16, 1920, 1280), (32, 320, 640), (32, 1920, 640),
             (32, 1280, 640), (32, 960, 640), (64, 960, 320), (64, 640, 320))
-    for tag, shapes in (("sdxl", sdxl), ("sd15", sd15)):
+    # the batches the requests give the UNet: 8 (resampled direction
+    # forwards and the model check), 2 (cond/uncond direction forwards), 3
+    # and 9 (the view batches of a 2:3 and a square SDXL image; SD 1.5's
+    # 512x768 request has 3 views)
+    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9)),
+                                 ("sd15", sd15, (8, 2, 3))):
         for S, C, O in shapes:
-            cases.append((tag, bf, 8, S, S, C, O, False, bf))
-    # view batches of the requests (9 views at 1536x1536, 3 at 1024x1536)
-    cases.append(("sdxl_views", bf, 9, 128, 128, 320, 320, False, bf))
-    cases.append(("sdxl_views", bf, 3, 32, 32, 1280, 1280, False, bf))
+            for B in batches:
+                cases.append((tag, bf, B, S, S, C, O, False, bf))
     cases.append(("ragged", bf, 8, 96, 96, 320, 320, False, f32))
     cases.append(("ragged", bf, 2, 42, 61, 328, 72, False, None))
+    cases.append(("ragged", bf, 3, 5, 7, 200, 136, True, bf))
+    cases.append(("small_c", bf, 2, 24, 40, 48, 64, False, bf))  # C < 64
     cases.append(("silu", bf, 8, 64, 64, 640, 640, True, bf))
     cases.append(("fp32", f32, 2, 64, 64, 320, 320, False, f32))
     cases.append(("fp32_ragged", f32, 1, 21, 37, 136, 72, True, f32))
@@ -372,9 +388,13 @@ def conv_cases():
 def run_conv3x3(gen, results):
     import torch.nn.functional as F
     from elasticdiffusion_tpu_torch.kernels.conv3x3 import (
-        conv3x3, reference_conv3x3)
+        conv3x3, conv_plan, reference_conv3x3)
     cl = torch.channels_last
     for tag, dtype, B, H, W, C, O, silu, bias_dtype in conv_cases():
+        name = (f"conv3x3/{tag}_{str(dtype)[6:]}_{B}x{H}x{W}x{C}->{O}"
+                + ("_silu" if silu else ""))
+        if not wanted(name):
+            continue
         # the operands as the module hands them over: the NHWC view of a
         # channels_last activation, the HWIO view of a channels_last weight
         x_nchw = torch.randn(B, C, H, W, generator=gen, device="cuda").to(
@@ -391,22 +411,26 @@ def run_conv3x3(gen, results):
             fail(f"conv3x3/{tag}: a channels_last operand was copied")
         ref = reference_conv3x3(x, w, bias, silu)
         max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
-        ms = time_ms(lambda: conv3x3(x, w, bias, silu))
-        plain_ms = time_ms(lambda: reference_conv3x3(x, w, bias, silu), 1, 5)
+        kernel = lambda: conv3x3(x, w, bias, silu)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: reference_conv3x3(x, w, bias, silu), 1, 3)
         lib_bias = None if bias is None else bias.to(dtype)
         if silu:
             lib = lambda: F.silu(F.conv2d(x_nchw, w_oihw, lib_bias, padding=1))
         else:
             lib = lambda: F.conv2d(x_nchw, w_oihw, lib_bias, padding=1)
         lib_ms = time_ms(lib)
+        # again without the host: about 2 ms of launches a replay
+        n = max(1, min(20, int(2.0 / ms)))
+        device_ms = graph_ms(kernel, n)
+        lib_device_ms = graph_ms(lib, n)
+        plan = conv_plan(dtype, B, H, W, C, O)
         nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size() \
             + (0 if bias is None else bias.numel() * bias.element_size())
         ops = 2.0 * 9 * C * O * B * H * W
         b_ms, b_by = bound(nbytes, ops, dtype)
         results.append({
-            "name": f"conv3x3/{tag}_{str(dtype)[6:]}_{B}x{H}x{W}x{C}->{O}"
-                    + ("_silu" if silu else ""),
-            "kernel": "conv3x3", "route": "cuda",
+            "name": name, "kernel": "conv3x3", "route": "cuda",
             "source": "elasticdiffusion_tpu_torch/kernels/csrc/conv3x3.cu",
             "replaces": "elasticdiffusion_tpu/kernels/conv3x3.py:166",
             "log_key": ("conv3x3", str(dtype), B, H, W, C, O, silu),
@@ -415,10 +439,21 @@ def run_conv3x3(gen, results):
             "tol_why": why + "; both sides sum the 9*C exact products in fp32",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
-            "tflops": ops / ms / 1e9,
+            "device_ms": device_ms, "library_device_ms": lib_device_ms,
+            "tflops": ops / device_ms / 1e9,
+            "body": plan.body, "splits": plan.splits,
+            "plan": {"tile": list(plan.tile), "bn": plan.bn,
+                     "stages": plan.stages, "blocks": plan.blocks},
             "library": "F.conv2d" + (" + F.silu" if silu else "")})
         del x_nchw, w_oihw, x, w, out, ref
         torch.cuda.empty_cache()
+
+
+CASES = None  # --cases: a regex; only the kernel cases whose name matches
+
+
+def wanted(name: str) -> bool:
+    return CASES is None or CASES.search(name) is not None
 
 
 def phase_kernels():
@@ -626,10 +661,11 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "conv3x3_operand_copies": wrappers["conv3x3"].copies,
           "cudnn_calls_in_gate": cudnn_in_gate,
           "unchecked_launches": unchecked})
-    unchecked_attention = [k for k in unchecked if k.startswith("flash_attention/")]
-    if unchecked_attention:
-        fail(f"{path['name']}: attention launched at shapes that no kernel "
-             f"case checks: {unchecked_attention}")
+    unchecked_shapes = [k for k in unchecked
+                        if k.startswith(("flash_attention/", "conv3x3/"))]
+    if unchecked_shapes:
+        fail(f"{path['name']}: attention or conv3x3 launched at shapes that "
+             f"no kernel case checks: {unchecked_shapes}")
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
     if conv_on and cudnn_in_gate:
@@ -655,9 +691,14 @@ def main(argv=None) -> int:
                     help="also append every JSON line to this file")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's output (registers, spills)")
+    ap.add_argument("--cases", default=None,
+                    help="regex: run only the kernel cases whose name matches")
     opt = ap.parse_args(argv)
-    global LOG_PATH
+    global LOG_PATH, CASES
     LOG_PATH = opt.log
+    if opt.cases:
+        import re
+        CASES = re.compile(opt.cases)
     phases = [p for p in opt.phases.split(",") if p]
     unknown = [p for p in phases if p not in ALL_PHASES]
     if unknown:
@@ -741,7 +782,8 @@ def main(argv=None) -> int:
                            "ms": r["ms"], "plain_ms": r["plain_ms"],
                            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                            "library_ms": r["library_ms"]})
-            for extra in ("body", "device_ms", "library_device_ms"):
+            for extra in ("body", "splits", "plan", "device_ms",
+                          "library_device_ms", "tflops"):
                 if extra in r:
                     listed[-1][extra] = r[extra]
         for kernel in totals:
@@ -751,7 +793,8 @@ def main(argv=None) -> int:
     emit({"phase": "total", "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": listed})
-    if set(phases) != set(ALL_PHASES) or len(logs) != len(PATHS):
+    if (set(phases) != set(ALL_PHASES) or len(logs) != len(PATHS)
+            or CASES is not None):
         # a partial run is a tool for development, never the proof
         print(json.dumps({"ok": False, "partial": phases,
                           "paths": sorted(logs)}), flush=True)

@@ -6,47 +6,73 @@
 // computes and shares none of its structure: the TPU version builds a
 // separate halo operand outside the kernel, takes three sublane-shifted
 // copies of its tile and plans blocks against VMEM, all of which answer the
-// TPU's DMA and layout rules. Here a block loads its own halo from global
-// memory with zero fill at the image edge, and a shifted tap is an address
-// offset into shared memory.
+// TPU's DMA and layout rules.
 //
 // Function: y[b,h,w,o] = act(bias[o] + sum_{dy,dx,c} x[b,h+dy-1,w+dx-1,c] *
 // w[dy,dx,c,o]), x zero outside the image. The sum over the 9 taps and C is
-// one fp32 accumulation; the bias is added in fp32; SiLU, where asked, acts
-// on the fp32 sum; one rounding to the type of x.
+// one fp32 accumulation (or, split over blocks, fp32 partial sums added in a
+// fixed order); the bias is added in fp32; SiLU, where asked, acts on the
+// fp32 sum; one rounding to the type of x.
 //
 // Operands: x (B,H,W,C) and w (3,3,C,O) with element strides and channel
 // stride 1 in both (C is the reduction dim), so the NHWC view of a
 // channels_last activation and the HWIO view of a channels_last (O,C,3,3)
 // weight are read in place. y is a fresh contiguous (B,H,W,O). C and O are
-// multiples of 8 (16-byte loads); H, W, C and O need not be multiples of any
-// tile: ragged edges are masked.
+// multiples of 8 (16-byte rows); H, W, C and O need not be multiples of any
+// tile.
 //
-// Design: a block owns an 8x16 tile of output pixels of one image and BN
-// output channels. It loops over C in chunks of BK; per chunk it stages the
-// 10x18 halo'd input tile and the nine (BN, BK) weight slabs in shared memory
-// (cp.async, 16 bytes a thread, zero fill where the source does not exist),
-// then runs 9 x BK/16 accumulating steps.
-//   conv3x3_mma_bf16  bf16: mma.sync m16n8k16 with fp32 accumulation. The 16
-//                     rows of an A fragment are the 16 pixels of one tile
-//                     row; ldmatrix takes one address per lane, so tap
-//                     (dy, dx) is the same fragment load at a shifted halo
-//                     address. B rows are output channels, contiguous along
-//                     C, which is the col-major operand mma wants from a
-//                     plain ldmatrix. Rows are padded by 16 bytes, which
-//                     keeps the 8 rows of every ldmatrix on distinct banks.
-//   conv3x3_fma_f32   fp32: full-precision FMAs on the CUDA cores (no TF32:
-//                     the fp32 path exists for precision); a thread owns one
-//                     pixel column of the tile and BN/16 output channels.
+// Bound on this card: operations (2*9*C*O*B*H*W over the bf16 tensor-core
+// peak) at every UNet shape.
 //
-// Bound on this card: operations (2*9*C*O*B*H*W) at every UNet shape. The
-// design reaches the tensor cores through mma.sync and hides load latency
-// only by running several blocks on an SM; wgmma, TMA and a pipelined ring
-// of chunks are the known next steps.
+// conv3x3_wgmma_bf16, the bf16 body, and what it does about that bound:
+//   * An implicit matrix product: M = output pixels, N = output channels,
+//     K = 9 taps x C. A tile is 128 or 256 pixels (a 16x8 or 16x16 patch of
+//     one image, or 8x8 patches of 2 or 4 images where W <= 8: no pixel of a
+//     tile is masked at the UNet's latents) by BN output channels (128 or
+//     160), and its K loop runs over (64-channel chunk, tap), taps fastest.
+//     The wrapper's plan picks the instantiation per shape; 256 pixels halve
+//     the B loads a product and most shapes run them.
+//   * Operands arrive by TMA, issued by one thread of a producer warpgroup.
+//     The A tile of tap (dy, dx) is one box of a 4-D tensor map over
+//     (C, W, H, B) at the signed coordinates (c0, x0+dx-1, y0+dy-1, b0):
+//     TMA fills what lies outside the image with zeros, which is the SAME
+//     padding, so no halo is staged and no tap is a shifted address inside
+//     a swizzled tile. The nine re-reads of a pixel come from L2. The B tile
+//     is a box of a map over the weight's (C, dx, dy, O) view, K-major.
+//     Both use 128-byte rows (64 channels) under the 128-byte swizzle, and
+//     a ragged C or O is zero-filled by TMA too.
+//   * A ring of 4-6 stages guarded by full/empty mbarriers (sm90.cuh) keeps
+//     loads in flight while two consumer warpgroups, 64 or 128 pixels each
+//     (one or two 64-row accumulators), run wgmma.m64nBNk16 with fp32
+//     accumulators in registers; a stage is given back once the products
+//     that read it have retired (wgmma.wait_group 1). setmaxnreg moves
+//     registers from the producer to the consumers.
+//   * Persistent: one block an SM walks over the output tiles, and the ring
+//     runs on from one tile to the next, so the producer loads the next
+//     tile's first stages while the consumers run this tile's epilogue.
+//   * Epilogue from registers: bias, SiLU, one rounding to bf16, NHWC store.
+//   * Too few tiles to fill 132 SMs (the 8x8 and 16x16 latents of SD 1.5):
+//     the plan splits each tile's K loop into several work items. Each split
+//     writes fp32 partial sums to a workspace the wrapper allocates;
+//     conv3x3_splitk_sum adds them in split order (no atomics, the same
+//     result on every run), then the bias and SiLU, and rounds once.
+//   * C < 64 runs the same body: TMA fills the rest of the 64-channel box
+//     with zeros.
+//
+// conv3x3_fma_f32, the fp32 body, is that of the port's first conv kernel
+// (the fp32 path exists for precision: full-precision FMAs on the CUDA
+// cores, no TF32): a block owns an 8x16 tile of output pixels and BN output
+// channels, and per chunk of C stages the 10x18 halo'd input tile and the
+// nine (BN, BK) weight slabs in shared memory (cp.async, zero fill where the
+// source does not exist); a thread owns one pixel column of the tile and
+// BN/16 output channels.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -68,6 +94,11 @@ struct ConvParams {
   int bias_kind;               // 0 none, 1 fp32, 2 bf16
   int silu;
   int tiles_x;
+  // the wgmma body: pixel tile (tw x th x tb = 128 or 256 pixels), tiles
+  // along H, output-channel tiles, K splits and their fp32 workspace
+  // (splits, B*H*W, O)
+  int tw, th, tb, tiles_y, tiles_n, splits;
+  float* ws;
 };
 
 __device__ __forceinline__ float load_bias(const ConvParams& p, int o) {
@@ -79,156 +110,6 @@ __device__ __forceinline__ float load_bias(const ConvParams& p, int o) {
 
 __device__ __forceinline__ float finish(float v, int silu) {
   return silu ? v / (1.f + __expf(-v)) : v;
-}
-
-// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(d), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices: lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor-core body
-// ---------------------------------------------------------------------------
-
-template <int BN, int BK>
-struct MmaCfg {
-  static constexpr int LD = BK + 8;  // bf16 elements per shared-memory row
-  static constexpr size_t SMEM = (size_t)(HALO + 9 * BN) * LD * sizeof(bf16);
-};
-
-template <int BN, int BK>
-__global__ void __launch_bounds__(THREADS, 2) conv3x3_mma_bf16(ConvParams p) {
-  constexpr int LD = MmaCfg<BN, BK>::LD;
-  constexpr int CPR = BK / 8;  // 16-byte chunks per row
-  constexpr int WN = BN / 2;   // output channels of a warp
-  constexpr int NT = WN / 8;   // its 8-wide n-tiles
-  static_assert(BK % 16 == 0 && NT % 2 == 0, "tile shape");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);  // [HALO][LD]
-  bf16* Ws = Xs + HALO * LD;                     // [9][BN][LD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int ty0 = (blockIdx.x / p.tiles_x) * TH;
-  const int tx0 = (blockIdx.x % p.tiles_x) * TW;
-  const int o0 = blockIdx.y * BN, b = blockIdx.z;
-  // 8 warps: 4 along the tile rows (2 rows = 2 m16 tiles each), 2 along O
-  const int wm = warp & 3, wn = warp >> 2;
-
-  const bf16* xb = static_cast<const bf16*>(p.x) + (long long)b * p.x_sb;
-  const bf16* wp = static_cast<const bf16*>(p.w);
-
-  // per-lane offsets of the ldmatrix row addresses
-  const int a_col = lane & 15, a_k = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  for (int c0 = 0; c0 < p.C; c0 += BK) {
-    __syncthreads();  // the previous chunk is no longer read
-    for (int idx = tid; idx < HALO * CPR; idx += THREADS) {
-      const int px = idx / CPR, ch = idx % CPR;
-      const int gy = ty0 + px / HW - 1, gx = tx0 + px % HW - 1;
-      const int c = c0 + ch * 8;
-      const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W && c < p.C;
-      const bf16* src = ok ? xb + gy * p.x_sh + gx * p.x_sw + c : xb;
-      cp_async16(Xs + px * LD + ch * 8, src, ok ? 16 : 0);
-    }
-    for (int idx = tid; idx < 9 * BN * CPR; idx += THREADS) {
-      const int row = idx / CPR, ch = idx % CPR;  // row = tap * BN + channel
-      const int tap = row / BN, o = o0 + row % BN;
-      const int c = c0 + ch * 8;
-      const bool ok = o < p.O && c < p.C;
-      const bf16* src =
-          ok ? wp + (tap / 3) * p.w_sy + (tap % 3) * p.w_sx + o * p.w_so + c
-             : wp;
-      cp_async16(Ws + row * LD + ch * 8, src, ok ? 16 : 0);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldmatrix_x4(a[mt], Xs + ((2 * wm + mt + dy) * HW + a_col + dx) * LD +
-                                 ks * 16 + a_k);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bq[4];
-          ldmatrix_x4(bq, Ws + (tap * BN + wn * WN + np * 16 + b_row) * LD +
-                              ks * 16 + b_k);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            mma_bf16_16816(acc[mt][2 * np], a[mt], bq[0], bq[1]);
-            mma_bf16_16816(acc[mt][2 * np + 1], a[mt], bq[2], bq[3]);
-          }
-        }
-      }
-    }
-  }
-
-  bf16* yb = static_cast<bf16*>(p.y);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int gy = ty0 + 2 * wm + mt;
-    if (gy >= p.H) continue;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int o = o0 + wn * WN + nt * 8 + 2 * tig;
-      if (o >= p.O) continue;  // O is a multiple of 8: o + 1 < O too
-      const float b0 = load_bias(p, o), b1 = load_bias(p, o + 1);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int gx = tx0 + g + 8 * half;
-        if (gx >= p.W) continue;
-        const float v0 = finish(acc[mt][nt][2 * half] + b0, p.silu);
-        const float v1 = finish(acc[mt][nt][2 * half + 1] + b1, p.silu);
-        bf16* dst = yb + (((long long)b * p.H + gy) * p.W + gx) * p.O + o;
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -332,6 +213,220 @@ __global__ void __launch_bounds__(THREADS) conv3x3_fma_f32(ConvParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA body
+// ---------------------------------------------------------------------------
+
+constexpr int kSMs = 132;  // H100 SXM: the persistent grid of the wgmma body
+
+// BN output channels a tile, STAGES (A, B) tiles in the ring. Two consumer
+// warpgroups of MT x 64 pixels and one producer warpgroup.
+template <int BN, int STAGES, int MT>
+struct WgConvCfg {
+  static constexpr int BM = 128 * MT;
+  static constexpr int THREADS = 384;
+  static constexpr int A_BYTES = BM * 128;  // 64 channels of BM pixels
+  static constexpr int B_BYTES = BN * 128;  // 64 channels of BN outputs
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // the producer keeps the work-item arithmetic of the persistent loop
+  static constexpr int REGS_PRODUCER = 40;
+  static constexpr int REGS_CONSUMER = 232;
+  // 1024 bytes of slack to align the tiles, 128 bytes of barriers
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE_BYTES + 128;
+  static_assert(B_BYTES % 1024 == 0 && BN % 8 == 0 && BN * MT <= 320,
+                "tile: A and B rows, accumulators a consumer thread");
+  static_assert(2 * STAGES * 8 <= 128, "barriers");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// One work item of the wgmma body: its output tile and its split's share
+// of the K loop, iterations (64-channel chunk, tap) with taps fastest.
+struct ConvTile {
+  int x0, y0, b0, o0, split, k_begin, nk;
+};
+
+template <int BN>
+__device__ __forceinline__ ConvTile conv_tile(const ConvParams& p, int item,
+                                              int tiles_mn, int kiters) {
+  ConvTile t;
+  t.split = item / tiles_mn;
+  const int r = item % tiles_mn;
+  const int m_tile = r / p.tiles_n;
+  t.o0 = (r % p.tiles_n) * BN;
+  t.x0 = (m_tile % p.tiles_x) * p.tw;
+  t.y0 = ((m_tile / p.tiles_x) % p.tiles_y) * p.th;
+  t.b0 = (m_tile / (p.tiles_x * p.tiles_y)) * p.tb;
+  t.k_begin = (int)((long long)kiters * t.split / p.splits);
+  t.nk = (int)((long long)kiters * (t.split + 1) / p.splits) - t.k_begin;
+  return t;
+}
+
+template <int BN, int STAGES, int MT>
+__global__ void __launch_bounds__(384, 1)
+    conv3x3_wgmma_bf16(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w,
+                       ConvParams p) {
+  using Cfg = WgConvCfg<BN, STAGES, MT>;
+  extern __shared__ unsigned char smem_dyn[];
+  // the swizzle works on address bits: tiles start on 1024-byte boundaries
+  unsigned char* base =
+      smem_dyn + ((1024u - (smem_u32(smem_dyn) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + STAGES * Cfg::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  // work items: (split, pixel tile, channel tile), channel tiles fastest,
+  // so the blocks that read the same pixels run side by side; a block takes
+  // items blockIdx.x, + gridDim.x, ... and the ring runs on across them
+  const int tiles_mn = p.tiles_x * p.tiles_y * ((p.B + p.tb - 1) / p.tb) *
+                       p.tiles_n;
+  const int items = tiles_mn * p.splits;
+  const int kiters = 9 * ((p.C + 63) / 64);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Cfg::REGS_PRODUCER));
+    if (threadIdx.x == 256) {
+      int g = 0;  // iterations so far, over all of this block's items
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const ConvTile t = conv_tile<BN>(p, item, tiles_mn, kiters);
+        for (int i = 0; i < t.nk; ++i, ++g) {
+          const int st = g % STAGES;
+          const uint32_t use = g / STAGES;
+          // the first time round the ring every stage is free
+          mbar_wait(&empty[st], (use & 1u) ^ 1u);
+          mbar_arrive_expect_tx(&full[st], Cfg::STAGE_BYTES);
+          const int k = t.k_begin + i, c0 = (k / 9) * 64, tap = k % 9;
+          const int dy = tap / 3, dx = tap % 3;
+          unsigned char* a = base + st * Cfg::STAGE_BYTES;
+          tma_load_4d(a, &map_x, &full[st], c0, t.x0 + dx - 1, t.y0 + dy - 1,
+                      t.b0);
+          tma_load_4d(a + Cfg::A_BYTES, &map_w, &full[st], c0, dx, dy, t.o0);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 MT pixels each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        Cfg::REGS_CONSUMER));
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const long long M = (long long)p.B * p.H * p.W;
+    // rows wg * 64 MT + 64 mt + (0..63) of the tile, mt < MT
+    float acc[MT][BN / 2];
+    int g = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const ConvTile t = conv_tile<BN>(p, item, tiles_mn, kiters);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+      for (int i = 0; i < t.nk; ++i, ++g) {
+        const int st = g % STAGES;
+        mbar_wait(&full[st], (g / STAGES) & 1);
+        const unsigned char* a = base + st * Cfg::STAGE_BYTES;
+        const uint64_t b_desc = smem_desc_sw128(a + Cfg::A_BYTES);
+        wgmma_fence();
+        // four k-steps of 16 channels: 32 bytes into the 128-byte rows
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            wgmma_ss<BN>(acc[mt],
+                         smem_desc_sw128(a + (wg * MT + mt) * 64 * 128) + 2 * ks,
+                         b_desc + 2 * ks, 1);
+        wgmma_commit();
+        // the products of the iteration before have retired: give its
+        // stage back
+        wgmma_wait<1>();
+        if (i > 0 && lane == 0) mbar_arrive(&empty[(g - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) pin(acc[mt]);
+      // the producer may fill the last stage with the next item's tiles
+      // while this one's epilogue runs
+      if (lane == 0) mbar_arrive(&empty[(g - 1) % STAGES]);
+
+      // a thread holds columns 8j + 2(lane % 4) + {0, 1} of rows lane / 4
+      // (acc[4j], acc[4j+1]) and lane / 4 + 8 (acc[4j+2], acc[4j+3]) of
+      // its warp's 16 pixels
+      const int cbase = t.o0 + 2 * (lane & 3);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = (wg * MT + mt) * 64 + warp * 16 + (lane >> 2) + 8 * half;
+        const int gx = t.x0 + m % p.tw, gy = t.y0 + (m / p.tw) % p.th;
+        const int gb = t.b0 + m / (p.tw * p.th);
+        if (gx >= p.W || gy >= p.H || gb >= p.B) continue;
+        const long long pix = ((long long)gb * p.H + gy) * p.W + gx;
+        const float* r = acc[mt];
+        if (p.splits == 1) {
+          bf16* dst = static_cast<bf16*>(p.y) + pix * p.O;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int o = cbase + 8 * j;
+            if (o >= p.O) continue;  // O is a multiple of 8: o + 1 < O too
+            const float v0 =
+                finish(r[4 * j + 2 * half] + load_bias(p, o), p.silu);
+            const float v1 =
+                finish(r[4 * j + 2 * half + 1] + load_bias(p, o + 1), p.silu);
+            *reinterpret_cast<__nv_bfloat162*>(dst + o) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+        } else {
+          float* dst = p.ws + ((long long)t.split * M + pix) * p.O;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int o = cbase + 8 * j;
+            if (o >= p.O) continue;
+            *reinterpret_cast<float2*>(dst + o) =
+                make_float2(r[4 * j + 2 * half], r[4 * j + 2 * half + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// y = act(bias + sum of the splits' partial sums, split 0 first), rounded
+// once; four outputs a thread
+__global__ void __launch_bounds__(256) conv3x3_splitk_sum(ConvParams p) {
+  const long long MO = (long long)p.B * p.H * p.W * p.O;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= MO) return;
+  float4 s = *reinterpret_cast<const float4*>(p.ws + i);
+  for (int z = 1; z < p.splits; ++z) {
+    const float4 t = *reinterpret_cast<const float4*>(p.ws + z * MO + i);
+    s.x += t.x;
+    s.y += t.y;
+    s.z += t.z;
+    s.w += t.w;
+  }
+  const int o = (int)(i % p.O);
+  __nv_bfloat162 lo = __floats2bfloat162_rn(
+      finish(s.x + load_bias(p, o), p.silu),
+      finish(s.y + load_bias(p, o + 1), p.silu));
+  __nv_bfloat162 hi = __floats2bfloat162_rn(
+      finish(s.z + load_bias(p, o + 2), p.silu),
+      finish(s.w + load_bias(p, o + 3), p.silu));
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(static_cast<bf16*>(p.y) + i) = packed;
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, int bn, const ConvParams& p,
                    cudaStream_t stream) {
@@ -344,6 +439,42 @@ cudaError_t launch(Kernel kernel, size_t smem, int bn, const ConvParams& p,
   return cudaGetLastError();
 }
 
+// The tensor maps are encoded on the host at every launch and travel by
+// value in the kernel's parameters: x as (C, W, H, B), boxes of 64 channels
+// of a tw x th x tb pixel tile; w as (C, dx, dy, O), boxes of 64 channels of
+// BN output channels.
+template <int BN, int STAGES, int MT>
+cudaError_t launch_wgmma(ConvParams p, cudaStream_t stream) {
+  using Cfg = WgConvCfg<BN, STAGES, MT>;
+  if (p.tw * p.th * p.tb != Cfg::BM || p.splits < 1 ||
+      p.splits > 9 * ((p.C + 63) / 64) || (p.splits > 1 && p.ws == nullptr))
+    return cudaErrorInvalidValue;
+  p.tiles_x = (p.W + p.tw - 1) / p.tw;
+  p.tiles_y = (p.H + p.th - 1) / p.th;
+  p.tiles_n = (p.O + BN - 1) / BN;
+  const long long tiles_b = (p.B + p.tb - 1) / p.tb;
+  CUtensorMap map_x, map_w;
+  if (!make_map_4d_bf16(&map_x, p.x, {p.C, p.W, p.H, p.B},
+                        {p.x_sw, p.x_sh, p.x_sb}, {64, p.tw, p.th, p.tb}) ||
+      !make_map_4d_bf16(&map_w, p.w, {p.C, 3, 3, p.O}, {p.w_sx, p.w_sy, p.w_so},
+                        {64, 1, 1, BN}))
+    return cudaErrorInvalidValue;
+  auto kernel = conv3x3_wgmma_bf16<BN, STAGES, MT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  // one block an SM, each walking over the work items
+  const long long items =
+      tiles_b * p.tiles_x * p.tiles_y * p.tiles_n * p.splits;
+  const unsigned grid = (unsigned)(items > kSMs ? kSMs : items);
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(map_x, map_w, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const long long groups = (long long)p.B * p.H * p.W * p.O / 4;
+  conv3x3_splitk_sum<<<(unsigned)((groups + 255) / 256), 256, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* ed_cuda_error_string(int code) {
@@ -351,12 +482,18 @@ extern "C" const char* ed_cuda_error_string(int code) {
 }
 
 // dtype of x, w and y: 0 = bf16, 1 = fp32. bias_kind: 0 none, 1 fp32,
-// 2 bf16. Returns a cudaError_t, or -1 for a dtype that has no kernel.
+// 2 bf16. plan: 0 = the fp32 FMA body; 1-4 = the bf16 wgmma body with 128 pixels by 128 (1) or 160 (2)
+// output channels a tile, or 256 pixels by 128 (3) or 160 (4), a (tw, th,
+// tb) pixel tile of that many pixels, and `splits` K splits whose partial
+// sums go to `ws` (splits x B*H*W x O floats; unused at one split). Returns a cudaError_t, or -1 for a (dtype, plan) that has no
+// kernel.
 extern "C" int ed_conv3x3(const void* x, const void* w, const void* bias,
                           void* y, int B, int H, int W, int C, int O,
                           long long x_sb, long long x_sh, long long x_sw,
                           long long w_sy, long long w_sx, long long w_so,
-                          int bias_kind, int silu, int dtype, void* stream) {
+                          int bias_kind, int silu, int dtype, int plan,
+                          int tw, int th, int tb, int splits, void* ws,
+                          void* stream) {
   ConvParams p;
   p.x = x; p.w = w; p.bias = bias; p.y = y;
   p.B = B; p.H = H; p.W = W; p.C = C; p.O = O;
@@ -365,12 +502,16 @@ extern "C" int ed_conv3x3(const void* x, const void* w, const void* bias,
   p.bias_kind = bias_kind;
   p.silu = silu;
   p.tiles_x = (W + TW - 1) / TW;
+  p.tw = tw; p.th = th; p.tb = tb;
+  p.tiles_y = 0; p.tiles_n = 0;
+  p.splits = splits;
+  p.ws = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    using Cfg = MmaCfg<64, 32>;
-    return (int)launch(conv3x3_mma_bf16<64, 32>, Cfg::SMEM, 64, p, st);
-  }
-  if (dtype == 1) {
+  if (dtype == 0 && plan == 1) return (int)launch_wgmma<128, 6, 1>(p, st);
+  if (dtype == 0 && plan == 2) return (int)launch_wgmma<160, 5, 1>(p, st);
+  if (dtype == 0 && plan == 3) return (int)launch_wgmma<128, 4, 2>(p, st);
+  if (dtype == 0 && plan == 4) return (int)launch_wgmma<160, 4, 2>(p, st);
+  if (dtype == 1 && plan == 0) {
     using Cfg = FmaCfg<64, 16>;
     return (int)launch(conv3x3_fma_f32<64, 16>, Cfg::SMEM, 64, p, st);
   }

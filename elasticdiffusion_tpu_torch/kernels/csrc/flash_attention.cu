@@ -19,21 +19,27 @@
 // bf16 inputs P is rounded to bf16 before P.V while the denominator sums
 // the unrounded fp32 P.
 //
-// Three bodies:
-//   flash_wgmma_bf16  bf16 inputs, head dims 64 (every UNet attention of
-//                     SD 2.x and SDXL) and 40 / 80 / 160 (SD 1.x UNet, 8
-//                     heads per block), self and cross: the body designed
-//                     for this card, described below.
-//   flash_mma_bf16    bf16 inputs, head dim 512 (VAE mid block): mma.sync
-//                     m16n8k16 tensor-core products with fp32 accumulation.
-//   flash_fma_f32     fp32 inputs, full-precision FMA products on the CUDA
-//                     cores (the fp32 path exists for precision; TF32 would
-//                     defeat it).
+// Four bodies:
+//   flash_wgmma_bf16    bf16 inputs, head dims 64 (every UNet attention of
+//                       SD 2.x and SDXL) and 40 / 80 / 160 (SD 1.x UNet, 8
+//                       heads per block), self and cross: the body designed
+//                       for this card, described below.
+//   flash_fma_f32_d512  fp32 inputs, head dim 512 (the VAE mid block of the
+//                       SDXL fp32 decode and of the fp32 strip encodes):
+//                       register-tiled full-precision FMAs with split keys,
+//                       described further below.
+//   flash_mma_bf16      bf16 inputs, head dim 512 (VAE mid block): mma.sync
+//                       m16n8k16 tensor-core products with fp32 accumulation.
+//   flash_fma_f32       fp32 inputs at head dims 40 / 64 / 80 / 160 (on no
+//                       path), full-precision FMA products.
+// No fp32 body uses TF32 or the tensor cores: the JAX kernel pins both
+// products to Precision.HIGHEST, and the fp32 path exists for precision.
 //
 // Bound on this card: operations (4*B*H*Sq*Sk*D over the bf16 tensor-core
-// peak) for self-attention; the q and output bytes for cross-attention
-// (Sk = 77). At D = 64 a 128-key tile costs the tensor cores and the
-// exponential unit about the same number of cycles, so the two must overlap.
+// peak, or the 67 TFLOP/s fp32 peak of the CUDA cores) for self-attention;
+// the q and output bytes for cross-attention (Sk = 77). At D = 64 a 128-key
+// tile costs the tensor cores and the exponential unit about the same number
+// of cycles, so the two must overlap.
 //
 // flash_wgmma_bf16, and what each part does about that bound:
 //   * Both products are wgmma.mma_async. A consumer warpgroup owns 64 query
@@ -83,17 +89,40 @@
 //   * A barrier wait that outlasts some seconds traps: a fault in the
 //     protocol is a CUDA error at the next synchronise, not a hang.
 //
-// The other two bodies share one structure, that of the port's first
-// attention kernel; it stays for head dim 512, whose accumulator no
-// warpgroup can hold, and for fp32. A block owns BM query rows. Per key tile:
+// flash_fma_f32_d512, and what it does about the fp32 operation bound (at
+// D = 512 the exponentials are 1/1024 of the work: the two products are it):
+//   * A block owns 64 query rows with 256 threads, and each thread a
+//     register micro-tile of both products: 4 rows x 4 keys of S = Q K^T
+//     (operands read from shared memory as float4 along the head dim: 64
+//     FMAs for 8 loads) and 8 rows x 16 head dims of O += P V (float4 rows
+//     of P and V: 512 FMAs for 24 loads). The 64 x 512 fp32 accumulator of
+//     O is 128 registers a thread, resident for the whole key loop.
+//   * Q is loaded once and stays in shared memory. Each 64-key tile streams
+//     through a ring of 2 slots, filled with cp.async one item ahead: 4 K
+//     chunks of 128 head dims, then 4 V chunks of 16 keys x 512 dims, so the
+//     loads of the next chunk run under the FMAs of the current one (each
+//     is 2048 FMAs a thread: the block's barriers are few).
+//   * S stays in registers through the online softmax (max and sum over a
+//     row's 16 threads are half-warp shuffles; each thread keeps its share
+//     of the denominator); P and the rescale factors pass through shared
+//     memory once, to the threads of the P V layout.
+//   * Where 64-row blocks cannot fill 132 SMs evenly (the strip encodes at
+//     704-2816 tokens, and the 576 blocks of a 36864-token decode), the wrapper
+//     splits the keys over blocks: each split writes its unnormalised O and
+//     its rows' running max and denominator in fp32 to a workspace, and
+//     flash_combine_f32 merges them in split order (no atomics).
+//
+// The last two bodies share one structure, that of the port's first
+// attention kernel; it stays for bf16 at head dim 512, whose accumulator no
+// warpgroup can hold, and for fp32 at the other head dims. A block owns BM
+// query rows. Per key tile:
 // (1) S = Q K^T goes to shared memory, (2) all threads run the online-softmax
 // update row by row and leave P in shared memory, (3) O += P V with the D
 // columns of the accumulator split across the warps of the block. Step (3)
 // is what lets a D = 512 accumulator (the VAE mid attention) live in
 // registers: no thread holds more than 64 of its floats.
 //
-// Head dims of those bodies: 512 (VAE mid block) and, in fp32, 40 / 64 / 80 /
-// 160 too. A head dim that is not a multiple of the tile step is padded with
+// Head dims of those bodies: 512 (bf16) and 40 / 64 / 80 / 160 (fp32). A head dim that is not a multiple of the tile step is padded with
 // zeros in shared memory only (40 -> 64 and 80 -> 96 for the 32 lanes of the
 // fp32 body): global rows keep their true width, pad columns add exact zeros
 // to Q.K^T, and the pad columns of O are never stored.
@@ -103,6 +132,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -364,202 +395,6 @@ __global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
 // ---------------------------------------------------------------------------
 // bf16, head dim 64: wgmma + TMA body
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits until the phase of the given parity has completed. A wait that
-// outlasts 2^33 cycles (seconds) traps.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  uint32_t done = 0, spins = 0;
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((++spins & 0x3ffu) == 0 && clock64() - t0 > (1ll << 33)) __trap();
-  }
-}
-
-// One box of a (D, H, S, B) tensor map into shared memory; completion is
-// counted in bytes on the mbarrier.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a tile whose rows are 128 bytes (64
-// bf16) under the 128-byte swizzle: groups of 8 rows lie 1024 bytes apart.
-// That stride goes into both offset fields: K-major operands (Q, K: the row
-// is the reduction dim) read it as the stride offset and ignore the leading
-// offset; for the MN-major operand (V: the row index is the reduction dim)
-// it is again the distance between 8-row groups, and the other field (the
-// distance between 64-column slabs) is unused at N = 64.
-__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
-  uint64_t d = static_cast<uint64_t>((smem_u32(p) & 0x3ffffu) >> 4);
-  d |= static_cast<uint64_t>(1024 >> 4) << 16;
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;
-  d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins registers that an asynchronous wgmma reads or writes: ordinary code
-// that uses them stays behind this point, and their live range reaches it.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// D (64 x N, fp32 registers) = or += A (64 x 16, shared) * B (16 x N, shared),
-// both K-major.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
-                                         int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<80>(float* d, uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %42, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "%40, %41, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // D (64 x N) += A (64 x 16, bf16 pairs in registers) * B (16 x N, shared,
 // MN-major: rows are the reduction dim); N = 64, or the first 40, 32 or 16
@@ -1097,6 +932,326 @@ __global__ void __launch_bounds__(256) flash_fma_f32(AttnParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32, head dim 512: register-tiled FMA body with split keys
+// ---------------------------------------------------------------------------
+
+// 64 query rows and 64-key tiles, 256 threads. Q stays in shared memory;
+// each key tile streams through a ring of two slots as 4 K chunks (64 keys x
+// 128 dims) and then 4 V chunks (16 keys x 512 dims): large chunks, so the
+// block meets a barrier every 2048 FMAs a thread (8 a key tile). Rows of 4-float
+// (16-byte) groups are padded by one group where threads read down a column
+// of rows, so the 8 lanes of every quarter-warp request hit distinct banks.
+struct F512Cfg {
+  static constexpr int D = 512, BM = 64, BN = 64, THREADS = 256, STAGES = 2;
+  static constexpr int LDQ = D + 4;   // floats a Q row
+  static constexpr int KC = 128;      // head dims of a K chunk
+  static constexpr int LDK = KC + 4;  // floats a row of a K chunk
+  static constexpr int VR = 16;       // keys of a V chunk (rows of D floats)
+  static constexpr int LDP = BN + 4;  // floats a P row
+  static constexpr int SLOT = BN * LDK;  // floats of a ring slot
+  static constexpr int ITEMS = D / KC + BN / VR;  // ring items a key tile
+  static constexpr size_t SMEM =
+      (size_t)(BM * LDQ + STAGES * SLOT + BM * LDP + BM) * sizeof(float);
+  static_assert(VR * D <= SLOT, "a V chunk fits a slot");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// Split z of `splits` takes key tiles [T z / splits, T (z+1) / splits) of
+// the T = ceil(Sk / 64) tiles. With one split the block writes the output;
+// with more it writes its unnormalised O and, per row, the running max m
+// and denominator l to the workspace (O: splits x B*Sq*H x 512 floats, then
+// (m, l): splits x B*Sq*H x 2), and flash_combine_f32 merges them.
+__global__ void __launch_bounds__(256, 1)
+    flash_fma_f32_d512(AttnParams p, int splits, float* ws) {
+  using Cfg = F512Cfg;
+  constexpr int D = Cfg::D, BM = Cfg::BM, BN = Cfg::BN, LDQ = Cfg::LDQ,
+                KC = Cfg::KC, LDK = Cfg::LDK, VR = Cfg::VR, LDP = Cfg::LDP,
+                STAGES = Cfg::STAGES, SLOT = Cfg::SLOT, ITEMS = Cfg::ITEMS;
+  constexpr int NKC = D / KC;  // K chunks a tile; the V chunks follow
+
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;                       // [BM][LDQ]
+  float* ring = Qs + BM * LDQ;           // STAGES slots
+  float* Ps = ring + STAGES * SLOT;      // [BM][LDP]
+  float* alpha_s = Ps + BM * LDP;        // [BM]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int T = (p.Sk + BN - 1) / BN;
+  const int t_begin = (int)((long long)T * split / splits);
+  const int nitems =
+      ((int)((long long)T * (split + 1) / splits) - t_begin) * ITEMS;
+
+  const float* qp = static_cast<const float*>(p.q) + (long long)b * p.q_sb +
+                    (long long)h * p.q_sh;
+  const float* kp = static_cast<const float*>(p.k) + (long long)b * p.k_sb +
+                    (long long)h * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + (long long)b * p.v_sb +
+                    (long long)h * p.v_sh;
+
+  // Q, once: rows past Sq are zeros (computed on, never stored)
+  for (int idx = tid; idx < BM * (D / 4); idx += Cfg::THREADS) {
+    const int r = idx / (D / 4), c = idx % (D / 4);
+    const bool ok = q0 + r < p.Sq;
+    cp_async16(Qs + r * LDQ + 4 * c,
+               ok ? qp + (long long)(q0 + r) * p.q_ss + 4 * c : qp,
+               ok ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // ring item u into slot u % STAGES: K chunk i < NKC of its key tile, or V
+  // chunk i - NKC; keys past Sk are zeros. Every call commits a group (an
+  // empty one past the end), so the group count stays uniform.
+  auto issue = [&](int u) {
+    if (u < nitems) {
+      const int k0 = (t_begin + u / ITEMS) * BN, i = u % ITEMS;
+      float* dst = ring + (u % STAGES) * SLOT;
+      if (i < NKC) {
+        for (int idx = tid; idx < BN * (KC / 4); idx += Cfg::THREADS) {
+          const int r = idx / (KC / 4), c = idx % (KC / 4);
+          const bool ok = k0 + r < p.Sk;
+          cp_async16(dst + r * LDK + 4 * c,
+                     ok ? kp + (long long)(k0 + r) * p.k_ss + i * KC + 4 * c
+                        : kp,
+                     ok ? 16 : 0);
+        }
+      } else {
+        const int j0 = k0 + (i - NKC) * VR;
+        for (int idx = tid; idx < VR * (D / 4); idx += Cfg::THREADS) {
+          const int r = idx / (D / 4), c = idx % (D / 4);
+          const bool ok = j0 + r < p.Sk;
+          cp_async16(dst + r * D + 4 * c,
+                     ok ? vp + (long long)(j0 + r) * p.v_ss + 4 * c : vp,
+                     ok ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // S = Q K^T: thread (ty, tx) owns rows ty + 16a and keys tx + 16c of the
+  // tile (a, c < 4); the 16 threads of a row are one half-warp.
+  const int ty = tid >> 4, tx = tid & 15;
+  float s[4][4];
+  float m[4], l[4];  // running max, this thread's share of the denominator
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+  }
+  // O += P V: warp w owns rows 16(w / 2) + 2r + lane / 16 (r < 8) and head
+  // dims 256(w % 2) + 64c + 4(lane % 16) + {0..3} (c < 4)
+  const int orow0 = 16 * (warp >> 1) + (lane >> 4);
+  const int ocol0 = 256 * (warp & 1) + 4 * (lane & 15);
+  float o[8][16];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[r][i] = 0.f;
+
+  for (int u = 0; u < STAGES - 1; ++u) issue(u);
+
+  for (int u = 0; u < nitems; ++u) {
+    cp_async_wait<STAGES - 2>();  // Q and item u have landed (this thread)
+    __syncthreads();  // ... for all; the slot of item u - 1 is free again
+    issue(u + STAGES - 1);
+    const float* slot = ring + (u % STAGES) * SLOT;
+    const int i = u % ITEMS;
+    if (i < NKC) {
+      if (i == 0) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
+      }
+      const float* qa = Qs + ty * LDQ + i * KC;
+      const float* kc = slot + tx * LDK;
+#pragma unroll 4
+      for (int d = 0; d < KC; d += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          qv[a] = *reinterpret_cast<const float4*>(qa + 16 * a * LDQ + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          kv[c] = *reinterpret_cast<const float4*>(kc + 16 * c * LDK + d);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[a][c] = fmaf(qv[a].x, kv[c].x, s[a][c]);
+            s[a][c] = fmaf(qv[a].y, kv[c].y, s[a][c]);
+            s[a][c] = fmaf(qv[a].z, kv[c].z, s[a][c]);
+            s[a][c] = fmaf(qv[a].w, kv[c].w, s[a][c]);
+          }
+      }
+      if (i == NKC - 1) {
+        // online softmax in registers; P and the rescale factors go to
+        // shared memory, where the P V threads read them
+        const int key0 = (t_begin + u / ITEMS) * BN + tx;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (key0 + 16 * c >= p.Sk) s[a][c] = -INFINITY;
+            mx = fmaxf(mx, s[a][c]);
+          }
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[a], mx);
+          const float alpha = exp2f((m[a] - m_new) * p.c);  // 0 at first
+          m[a] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float pv = exp2f((s[a][c] - m_new) * p.c);
+            sum += pv;
+            Ps[(ty + 16 * a) * LDP + tx + 16 * c] = pv;
+          }
+          l[a] = l[a] * alpha + sum;
+          if (tx == 0) alpha_s[ty + 16 * a] = alpha;
+        }
+      }
+    } else {
+      const int j0 = (i - NKC) * VR;  // key of the tile at the chunk's row 0
+      if (j0 == 0) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float al = alpha_s[orow0 + 2 * r];
+#pragma unroll
+          for (int k = 0; k < 16; ++k) o[r][k] *= al;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < VR; jj += 4) {
+        float4 pv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          pv[r] = *reinterpret_cast<const float4*>(
+              Ps + (orow0 + 2 * r) * LDP + j0 + jj);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float4 vv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            vv[c] = *reinterpret_cast<const float4*>(
+                slot + (jj + q) * D + ocol0 + 64 * c);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float pr = q == 0 ? pv[r].x
+                             : q == 1 ? pv[r].y
+                             : q == 2 ? pv[r].z
+                                      : pv[r].w;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              o[r][4 * c] = fmaf(pr, vv[c].x, o[r][4 * c]);
+              o[r][4 * c + 1] = fmaf(pr, vv[c].y, o[r][4 * c + 1]);
+              o[r][4 * c + 2] = fmaf(pr, vv[c].z, o[r][4 * c + 2]);
+              o[r][4 * c + 3] = fmaf(pr, vv[c].w, o[r][4 * c + 3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the denominator of a row: the sum of its 16 threads' shares
+  const long long R = (long long)p.B * p.Sq * p.H;  // rows of all heads
+  float* l_s = alpha_s;  // alpha is no longer read after the barrier below
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l[a] += __shfl_xor_sync(0xffffffffu, l[a], off);
+    const int row = q0 + ty + 16 * a;
+    if (tx == 0) {
+      l_s[ty + 16 * a] = l[a];
+      if (splits > 1 && row < p.Sq) {
+        float* ml = ws + (long long)splits * R * D +
+                    2 * ((long long)split * R + ((long long)b * p.Sq + row) *
+                                                    p.H + h);
+        ml[0] = m[a];
+        ml[1] = l[a];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = q0 + orow0 + 2 * r;
+    if (row >= p.Sq) continue;
+    const long long ri = ((long long)b * p.Sq + row) * p.H + h;
+    float* dst;
+    float scale = 1.f;
+    if (splits == 1) {
+      dst = static_cast<float*>(p.o) + ri * D + ocol0;
+      scale = 1.f / l_s[orow0 + 2 * r];
+    } else {
+      dst = ws + ((long long)split * R + ri) * D + ocol0;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(dst + 64 * c) =
+          make_float4(o[r][4 * c] * scale, o[r][4 * c + 1] * scale,
+                      o[r][4 * c + 2] * scale, o[r][4 * c + 3] * scale);
+  }
+}
+
+// Merges the splits of flash_fma_f32_d512, split 0 first: with M the largest
+// running max of a row and w_z = exp2((m_z - M) c), the output is
+// sum_z w_z O_z / sum_z w_z l_z. One block of 128 threads a row, four head
+// dims a thread.
+__global__ void __launch_bounds__(128)
+    flash_combine_f32(const float* ws, int splits, long long R, float c,
+                      float* out) {
+  constexpr int D = 512;
+  const long long r = blockIdx.x;
+  const float* ml = ws + (long long)splits * R * D;
+  float mx = -INFINITY;
+  for (int z = 0; z < splits; ++z) mx = fmaxf(mx, ml[2 * (z * R + r)]);
+  float den = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z = 0; z < splits; ++z) {
+    const float w = exp2f((ml[2 * (z * R + r)] - mx) * c);
+    den += w * ml[2 * (z * R + r) + 1];
+    const float4 t = *reinterpret_cast<const float4*>(
+        ws + (z * R + r) * D + 4 * threadIdx.x);
+    acc.x = fmaf(w, t.x, acc.x);
+    acc.y = fmaf(w, t.y, acc.y);
+    acc.z = fmaf(w, t.z, acc.z);
+    acc.w = fmaf(w, t.w, acc.w);
+  }
+  const float inv = 1.f / den;
+  *reinterpret_cast<float4*>(out + r * D + 4 * threadIdx.x) =
+      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+}
+
+cudaError_t launch_f512(const AttnParams& p, int splits, float* ws,
+                        cudaStream_t stream) {
+  using Cfg = F512Cfg;
+  auto kernel = flash_fma_f32_d512;
+  const int T = (p.Sk + Cfg::BN - 1) / Cfg::BN;
+  if (splits < 1 || splits > T || (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Sq + Cfg::BM - 1) / Cfg::BM, p.H, p.B * splits);
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(p, splits, ws);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long R = (long long)p.B * p.Sq * p.H;
+  flash_combine_f32<<<(unsigned)R, 128, 0, stream>>>(
+      ws, splits, R, p.c, static_cast<float*>(p.o));
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, int threads, int bm,
                    const AttnParams& p, cudaStream_t stream) {
@@ -1108,33 +1263,6 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int bm,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime; its address
-// is fetched through the runtime, so the library links against nothing but
-// cudart.
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled_entry() {
-  static EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
-      ptr = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(ptr);
-  }();
-  return fn;
-}
-
 // Tensor map of one bf16 (B, S, H, D) view, innermost dim first: (D, H, S,
 // B) with the view's strides, boxes of 64 columns and `rows` sequence
 // positions of one head, 128-byte swizzle. What a box holds outside the
@@ -1143,22 +1271,8 @@ EncodeTiledFn encode_tiled_entry() {
 bool make_tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                      int D, long long sb, long long ss, long long sh,
                      int rows) {
-  EncodeTiledFn encode = encode_tiled_entry();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  // a dim of size 1 is never stepped over: any legal stride does
-  const cuuint64_t strides[3] = {
-      (cuuint64_t)(H > 1 ? sh : 64) * sizeof(bf16),
-      (cuuint64_t)(S > 1 ? ss : 64) * sizeof(bf16),
-      (cuuint64_t)(B > 1 ? sb : 64) * sizeof(bf16)};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_4d_bf16(map, ptr, {D, H, S, B}, {sh, ss, sb},
+                          {64, 1, rows, 1});
 }
 
 // The tensor maps are encoded on the host at every launch and travel by
@@ -1190,19 +1304,22 @@ extern "C" const char* ed_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = bf16, 1 = fp32. plan: 0 = the mma.sync (bf16) or FMA (fp32) body
-// of the head dim; 1-3 = the wgmma body (bf16, D = 40, 64, 80 or 160): 128
-// query rows a block and a ring of 128-key (D = 160: 64-key) tiles (1), 64
-// query rows and a ring of 64-key tiles (2), or 64 query rows and one tile of
-// at most 80 keys (3). Returns a cudaError_t, or -1 for a (dtype, head dim,
-// plan) that has no instantiation.
+// dtype: 0 = bf16, 1 = fp32. plan: 0 = the mma.sync (bf16, D = 512) or FMA
+// (fp32, D = 40, 64, 80, 160) body of the head dim; 1-3 = the wgmma body
+// (bf16, D = 40, 64, 80 or 160): 128 query rows a block and a ring of
+// 128-key (D = 160: 64-key) tiles (1), 64 query rows and a ring of 64-key
+// tiles (2), or 64 query rows and one tile of at most 80 keys (3); 4 = the
+// register-tiled fp32 body at D = 512, its keys split over `splits` blocks
+// whose partials go to `ws` (splits x B*Sq*H x 514 floats; unused at one
+// split). Returns a cudaError_t, or -1 for a (dtype, head dim, plan) that
+// has no instantiation.
 extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int Sq, int Sk, int H, int D,
                                   long long q_sb, long long q_ss, long long q_sh,
                                   long long k_sb, long long k_ss, long long k_sh,
                                   long long v_sb, long long v_ss, long long v_sh,
                                   int dtype, float scale_log2e, int plan,
-                                  void* stream) {
+                                  int splits, void* ws, void* stream) {
   AttnParams p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H;
@@ -1211,6 +1328,10 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.c = scale_log2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan == 4) {
+    if (dtype != 1 || D != 512) return -1;
+    return (int)launch_f512(p, splits, static_cast<float*>(ws), st);
+  }
   if (plan != 0) {
     if (dtype != 0) return -1;
 // per head dim: keys a tile and stages of plan 1, stages of plan 2
@@ -1245,11 +1366,6 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64) {
     using Cfg = FmaCfg<64, 64, 64>;
     return (int)launch(flash_fma_f32<64, 64, 64>, Cfg::SMEM, Cfg::THREADS, 64,
-                       p, st);
-  }
-  if (dtype == 1 && D == 512) {
-    using Cfg = FmaCfg<512, 32, 32>;
-    return (int)launch(flash_fma_f32<512, 32, 32>, Cfg::SMEM, Cfg::THREADS, 32,
                        p, st);
   }
   return -1;

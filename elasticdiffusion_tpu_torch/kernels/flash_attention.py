@@ -11,14 +11,20 @@ zeros) runs the body designed for Hopper: both products are ``wgmma``, K and
 V arrive by TMA in a ring of shared-memory stages guarded by ``mbarrier``s, a
 producer warpgroup loads while consumer warpgroups compute, and the softmax
 stays in the accumulator registers. bf16 at head dim 512 (the VAE mid block)
-runs the ``mma.sync`` body, fp32 the full-precision FMA body.
+runs the ``mma.sync`` body. fp32 at head dim 512 (the VAE mid block of the
+SDXL fp32 decode and the fp32 strip encodes) runs a register-tiled body of
+full-precision FMAs (no TF32, as the JAX kernel's ``Precision.HIGHEST``):
+Q resident in shared memory, K and V streamed through a ``cp.async`` ring,
+and the keys split over blocks where the query rows cannot fill the card,
+each split's (m, l, O) merged in split order by a second kernel. fp32 at the
+other head dims runs the port's first FMA body.
 
 Bound on this card: operations, ``4*B*H*Sq*Sk*D``, against the bf16 tensor
 core peak (fp32: the CUDA-core peak); for cross-attention (Sk = 77) the q and
 output bytes. At head dim 64 the exponentials of a key tile cost about as
 many cycles as its two products, so the ``wgmma`` body overlaps them: see the
-source for how. ``attention_plan`` picks the body and its tile as a pure
-function of the shape.
+source for how. ``attention_plan`` picks the body, its tile and the key
+splits as a pure function of the shape.
 
 Layout ``(B, S, H, D)``. Strided views are taken as they are when the last
 dim is contiguous and the other strides keep 16-byte alignment (which is also
@@ -46,6 +52,12 @@ WGMMA_TILES = {40: ((128, 3), 4), 64: ((128, 3), 4), 80: ((128, 3), 2),
 WGMMA_HEAD_DIMS = tuple(WGMMA_TILES)
 SM_COUNT = 132            # H100 SXM
 SMEM_PER_BLOCK = 232448   # bytes of shared memory one block may use
+# the fp32 body at head dim 512: 64 query rows, 64-key tiles, a ring of 2
+# slots; Q rows of 516 floats, slots of 64 x 132 floats, P rows of 68
+# floats, and 64 floats of rescale factors (F512Cfg in
+# csrc/flash_attention.cu)
+F512_SMEM = (64 * 516 + 2 * 64 * 132 + 64 * 68 + 64) * 4
+MAX_KEY_SPLITS = 16
 
 
 class AttentionPlan(NamedTuple):
@@ -57,7 +69,31 @@ class AttentionPlan(NamedTuple):
     stages: int      # (K, V) tiles in flight in shared memory
     threads: int
     smem_bytes: int
-    blocks: int      # grid size
+    blocks: int      # grid size of the main kernel
+    splits: int = 1  # blocks that share one query tile's keys
+
+
+def key_splits(row_blocks: int, key_tiles: int) -> int:
+    """Key splits of the fp32 D = 512 body. A block's time is modelled as
+    its key tiles plus half a tile for its prologue (Q, the ring's fill),
+    the grid's as that times its waves of 132 blocks. At least 2 splits
+    where the query rows alone leave SMs idle; a count replaces a smaller
+    one only if it is 5 % faster by the model; at most one split a tile."""
+    lo = 2 if row_blocks < SM_COUNT else 1
+    best, best_cost = 1, None
+    for s in range(lo, min(key_tiles, MAX_KEY_SPLITS) + 1):
+        cost = -(-row_blocks * s // SM_COUNT) * (-(-key_tiles // s) + 0.5)
+        if best_cost is None or cost < 0.95 * best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def key_split_ranges(Sk: int, splits: int, bn: int = 64):
+    """The keys ``[lo, hi)`` of each split, as the kernel cuts them: whole
+    tiles of ``bn`` keys, the last one ragged."""
+    T = -(-Sk // bn)
+    return [(bn * (T * z // splits), min(Sk, bn * (T * (z + 1) // splits)))
+            for z in range(splits)]
 
 
 def attention_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int,
@@ -86,6 +122,11 @@ def attention_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int,
         smem = 1024 + nslab * 128 * (bm + stages * 2 * bn) + 128
         return AttentionPlan("wgmma", code, bm, bn, stages, 128 + 2 * bm, smem,
                              B * H * -(-Sq // bm))
+    if dtype == torch.float32 and D == 512:
+        row_blocks = B * H * -(-Sq // 64)
+        splits = key_splits(row_blocks, -(-Sk // 64))
+        return AttentionPlan("fma.tiled", 4, 64, 64, 2, 256, F512_SMEM,
+                             row_blocks * splits, splits)
     bm = bn = 32 if D == 512 else 64
     if dtype == torch.bfloat16:              # D = 512 only
         wg = 4                               # warps that share a row group
@@ -111,6 +152,30 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def split_key_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        splits: int) -> torch.Tensor:
+    """Plain version of the split-key path of the fp32 body: per split of
+    the 64-key tiles, the fp32 running max m, denominator l and unnormalised
+    O of every row; merged in split order as sum_z w_z O_z / sum_z w_z l_z,
+    w_z = exp(m_z - max_z m_z). fp32 throughout (P is not rounded)."""
+    D = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    parts = []
+    for lo, hi in key_split_ranges(k.shape[1], splits):
+        lg = logits[..., lo:hi]
+        m = lg.amax(-1, keepdim=True)
+        p = torch.exp(lg - m)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhqk,bkhd->bhqd", p, v[:, lo:hi].float())))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = den = 0.0
+    for m, l, o in parts:
+        w = torch.exp(m - top)
+        den = den + w * l
+        num = num + w * o
+    return (num / den).permute(0, 2, 1, 3).to(q.dtype)
 
 
 def _strided_ok(t: torch.Tensor) -> bool:
@@ -143,6 +208,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     plan = attention_plan(q.dtype, B, Sq, Sk, H, D)
     q, k, v = (t if _strided_ok(t) else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    # the key splits' fp32 partials: O (splits, B*Sq*H, D), then (m, l)
+    ws = (torch.empty(plan.splits * B * Sq * H * (D + 2), dtype=torch.float32,
+                      device=q.device) if plan.splits > 1 else None)
     lib = build.load("flash_attention")
     fn = lib.ed_flash_attention
     if not fn.argtypes:
@@ -150,7 +218,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -158,7 +226,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                   q.stride(0), q.stride(1), q.stride(2),
                   k.stride(0), k.stride(1), k.stride(2),
                   v.stride(0), v.stride(1), v.stride(2),
-                  _DTYPES[q.dtype], _LOG2E / math.sqrt(D), plan.code, stream)
+                  _DTYPES[q.dtype], _LOG2E / math.sqrt(D), plan.code,
+                  plan.splits, ws.data_ptr() if ws is not None else None,
+                  stream)
     build.check(lib, code, "flash_attention", unsupported)
     flash_attention.launches += 1
     note_launch("flash_attention", str(q.dtype), B, Sq, Sk, H, D)

@@ -2,9 +2,11 @@
 ragged key counts.
 
 ``attention_plan`` is a pure function of (dtype, B, Sq, Sk, H, D): which body
-of ``csrc/flash_attention.cu`` a launch runs (``wgmma``, ``mma.sync`` or
-``fma``), with which tile, how many blocks and how much shared memory. The
-kernel itself runs only on the GPU; what surrounds it is checked here.
+of ``csrc/flash_attention.cu`` a launch runs (``wgmma``, ``mma.sync``,
+``fma.tiled`` or ``fma``), with which tile, how many blocks, how much shared
+memory and, for the fp32 body at head dim 512, over how many blocks the keys
+are split. The kernel itself runs only on the GPU; what surrounds it is
+checked here, with the plain version of the split-key merge.
 """
 
 import math
@@ -21,8 +23,9 @@ from elasticdiffusion_tpu.kernels.attention import (
 from elasticdiffusion_tpu_torch.kernels import attention as tattn
 from elasticdiffusion_tpu_torch.kernels import build
 from elasticdiffusion_tpu_torch.kernels.flash_attention import (
-    HEAD_DIMS, SM_COUNT, SMEM_PER_BLOCK, WGMMA_HEAD_DIMS, attention_plan,
-    flash_attention, reference_attention)
+    F512_SMEM, HEAD_DIMS, MAX_KEY_SPLITS, SM_COUNT, SMEM_PER_BLOCK,
+    WGMMA_HEAD_DIMS, attention_plan, flash_attention, key_split_ranges,
+    key_splits, reference_attention, split_key_attention)
 from torch_port_common import max_abs, t2n
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -30,7 +33,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 def _body(dtype, D):
     if dtype == F32:
-        return "fma"
+        return "fma.tiled" if D == 512 else "fma"
     return "wgmma" if D in WGMMA_HEAD_DIMS else "mma.sync"
 
 
@@ -58,7 +61,7 @@ def _main_path_shapes():
 def test_plan_of_every_main_path_shape(dtype, B, Sq, Sk, H, D):
     plan = attention_plan(dtype, B, Sq, Sk, H, D)
     assert plan.body == _body(dtype, D)
-    assert plan.blocks == B * H * math.ceil(Sq / plan.bm)
+    assert plan.blocks == B * H * math.ceil(Sq / plan.bm) * plan.splits
     # the grid fills the card, or the block is the small one
     assert plan.blocks >= SM_COUNT or plan.bm <= 64
     assert plan.smem_bytes <= SMEM_PER_BLOCK == 232448
@@ -72,8 +75,11 @@ def test_plan_of_every_main_path_shape(dtype, B, Sq, Sk, H, D):
         else:              # a ring of at least 2 stages
             assert plan.stages >= 2 and plan.bn in (64, 128)
         assert plan.bn % 8 == 0 and (plan.bn * 128) % 1024 == 0
+    elif plan.body == "fma.tiled":
+        assert (plan.code, plan.bm, plan.bn, plan.threads) == (4, 64, 64, 256)
+        assert 1 <= plan.splits <= math.ceil(Sk / plan.bn)
     else:
-        assert plan.code == 0
+        assert plan.code == 0 and plan.splits == 1
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
@@ -109,7 +115,10 @@ def test_wgmma_plans_name_instantiations_of_the_source():
             assert want[plan.code] == (plan.bm // 64, plan.bn, plan.stages)
     assert {attention_plan(BF16, *s, 64).code for s in (
         (8, 4096, 4096, 10), (1, 256, 256, 20), (8, 4096, 77, 10))} == {1, 2, 3}
-    # the acceptance of the design, readable in the source
+    # the acceptance of the design, readable in the source and the Hopper
+    # building blocks it includes
+    assert '#include "sm90.cuh"' in src
+    src += (build.CSRC / "sm90.cuh").read_text()
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                    "setmaxnreg"):
         assert needle in src
@@ -145,3 +154,67 @@ def test_plain_version_at_ragged_keys_matches_jax_and_counts_no_launch(Sk, dtype
     else:
         # both sides round fp32 results to bf16: one ulp at the largest value
         assert max_abs(t2n(got.float()), want) <= _bf16_ulp(np.abs(want).max())
+
+
+# (Sq = Sk, key splits) of the fp32 head-dim-512 attentions of the paths: the
+# strip encodes (704, 2688, 2816 tokens), a 512x512 decode (4096) and the
+# SDXL fp32 decodes (24576, 36864)
+F32_PATH_SPLITS = ((704, 11), (2688, 3), (2816, 3), (4096, 2), (24576, 1),
+                   (36864, 2))
+
+
+@pytest.mark.parametrize("S,splits", F32_PATH_SPLITS)
+def test_fp32_d512_split_rule_at_path_shapes(S, splits):
+    plan = attention_plan(F32, 1, S, S, 1, 512)
+    assert plan.body == "fma.tiled" and plan.stages == 2
+    row_blocks = math.ceil(S / 64)
+    assert plan.splits == splits == key_splits(row_blocks, math.ceil(S / 64))
+    # the query rows alone leave SMs idle where the keys are split; the
+    # 36864-token decode is split too, because its fifth wave of 64-row
+    # blocks would be a third full
+    assert (plan.splits > 1) == (row_blocks < SM_COUNT or S == 36864)
+    assert plan.blocks == row_blocks * plan.splits
+    assert plan.smem_bytes == F512_SMEM <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("row_blocks", [1, 5, 11, 42, 64, 100, 131, 132, 384,
+                                        576, 2000])
+@pytest.mark.parametrize("key_tiles", [1, 2, 11, 42, 576])
+def test_key_splits_stay_in_range(row_blocks, key_tiles):
+    s = key_splits(row_blocks, key_tiles)
+    assert 1 <= s <= max(1, min(key_tiles, MAX_KEY_SPLITS))
+    if row_blocks < SM_COUNT and key_tiles >= 2:
+        assert s >= 2
+
+
+@pytest.mark.parametrize("Sk,splits", [(64, 1), (300, 2), (300, 5), (704, 11),
+                                       (130, 3)])
+def test_key_split_ranges_cover_the_keys_in_whole_tiles(Sk, splits):
+    ranges = key_split_ranges(Sk, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0 and ranges[-1][1] == Sk
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:]):
+        assert lo < hi == nxt and lo % 64 == 0
+
+
+@pytest.fixture(scope="module")
+def split_case():
+    """fp32 operands at head dim 512, keys in 5 tiles (the last ragged),
+    and the JAX package's reference attention on them."""
+    rng = np.random.default_rng(512)
+    q, k, v = (rng.standard_normal((1, S, 2, 512)).astype(np.float32)
+               for S in (96, 300, 300))
+    want = np.asarray(j_reference_attention(*(jnp.asarray(a) for a in (q, k, v))))
+    return q, k, v, want
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5])
+def test_split_key_merge_matches_jax_reference(split_case, splits):
+    """The plain version of the fp32 bodies' split-key path: per-split (m,
+    l, O) merged in split order gives the JAX reference's numbers."""
+    q, k, v, want = split_case
+    got = split_key_attention(*(torch.from_numpy(a) for a in (q, k, v)), splits)
+    assert got.dtype == F32 and tuple(got.shape) == want.shape
+    # fp32 sums in another order, and exp against the merge's rescaling
+    assert max_abs(t2n(got), want) < 1e-5
+    ref = reference_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert max_abs(t2n(got), t2n(ref)) < 1e-5
