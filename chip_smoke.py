@@ -13,11 +13,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
   device    the card (nvidia-smi name and power limit), torch and CUDA
   build     nvcc builds every kernel from the sources in this checkout
-  kernels   every kernel against its plain PyTorch version at the shapes
-            the main paths give it, with times from CUDA events; attention
-            and conv3x3 also replayed from a CUDA graph (`device_ms`, the
-            kernel without the host that launches it), with the plan each
-            shape ran (body, tile, splits)
+  kernels   every kernel against its plain PyTorch version at every shape
+            the main paths give it, with times from CUDA events and replayed
+            from a CUDA graph (`device_ms`, the kernel without the host that
+            launches it), with the plan each shape ran (body, tile, splits)
   model     per bundle, one full-width batch-8 UNet forward and one VAE
             decode with the kernels against the same modules with the plain
             versions; for the bundles that run the conv kernel, the forward
@@ -28,7 +27,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
             default conv_impl='cudnn'; launch counts are set to 0 just before
             each path and read just after; `unchecked_launches` lists the
             shapes a path launched that the kernels phase did not check, and
-            an attention or conv3x3 shape among them fails the run
+            any shape among them fails the run
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the main paths, error, time and bound. A
@@ -197,6 +196,12 @@ def attention_cases():
     cases.append(("ragged", bf, 1, 2000, 1001, 12, 64))
     cases.append(("fused_qkv", bf, 2, 1024, 1024, 10, 64))
     cases.append(("fused_qkv", bf, 2, 1024, 1024, 8, 80))
+    # edges of the bf16 body at head dim 512, on no path: ragged rows and
+    # keys over two strided heads (split keys), one ragged key tile, and
+    # 132 row blocks (one split: the block stores bf16 itself)
+    cases.append(("ragged", bf, 2, 1000, 777, 2, 512))
+    cases.append(("ragged", bf, 1, 50, 20, 1, 512))
+    cases.append(("one_split", bf, 1, 8448, 8448, 1, 512))
     return cases
 
 
@@ -242,7 +247,7 @@ def run_attention(gen, results):
             "kernel": "flash_attention", "route": "cuda",
             "source": "elasticdiffusion_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": "elasticdiffusion_tpu/kernels/flash_attention.py:"
-                        + ("355" if Sk > 4096 or dtype == torch.float32 else "228"),
+                        + ("355" if D == 512 else "228"),
             "log_key": ("flash_attention", str(dtype), B, Sq, Sk, H, D),
             "body": plan.body, "splits": plan.splits,
             "max_abs_err": max_abs, "rel_l2_err": rel_l2,
@@ -257,11 +262,11 @@ def run_attention(gen, results):
 
 def attention_host_us(gen):
     """Host microseconds the attention wrapper takes to enqueue one launch
-    (tensor maps encoded on the host at every launch of the wgmma body),
-    beside the mma.sync body at the same small shape."""
+    (tensor maps encoded on the host at every launch of the wgmma bodies),
+    at head dims 64 and 512 at a small shape."""
     from elasticdiffusion_tpu_torch.kernels.flash_attention import flash_attention
     out = {}
-    for body, H, D in (("wgmma", 20, 64), ("mma.sync", 1, 512)):
+    for body, H, D in (("wgmma", 20, 64), ("wgmma.d512", 1, 512)):
         q = torch.randn(2, 256, H * D, generator=gen, device="cuda").to(
             torch.bfloat16).view(2, 256, H, D)
         flash_attention(q, q, q)
@@ -274,14 +279,36 @@ def attention_host_us(gen):
     return out
 
 
+def layernorm_cases():
+    """(tag, dtype, N, C) of every LayerNorm the paths launch: the UNet
+    transformer blocks (tokens x width, times the batches the requests give:
+    8, 2, 3 and 9 as for attention; SD 1.5's 512x768 request has 3 views)
+    and the text encoders' 77 tokens. Every case is timed in full."""
+    bf = torch.bfloat16
+    unet = (("sdxl", ((4096, 640), (1024, 1280)), (8, 2, 3, 9)),
+            ("sd15", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
+             (8, 2, 3)),
+            ("sd21", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
+             (8, 2, 3, 9)))
+    cases, seen = [], set()
+    for tag, shapes, batches in unet:
+        for S, C in shapes:
+            for B in batches:
+                if (B * S, C) not in seen:
+                    seen.add((B * S, C))
+                    cases.append((tag, bf, B * S, C))
+    for C in (768, 1280, 1024):  # CLIP L (SD 1.x, SDXL), bigG, OpenCLIP H
+        cases.append(("clip", bf, 77, C))
+    return cases
+
+
 def run_layernorm(gen, results):
     import torch.nn.functional as F
     from elasticdiffusion_tpu_torch.kernels.layernorm import (
-        fused_layer_norm, reference_layer_norm)
-    dtype = torch.bfloat16
-    for N, C in ((8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280),
-                 (8 * 4096, 640), (8 * 1024, 1280)):   # the last two: SDXL
-        if not wanted(f"fused_layer_norm/bfloat16_{N}x{C}"):
+        fused_layer_norm, layernorm_plan, reference_layer_norm)
+    for tag, dtype, N, C in layernorm_cases():
+        name = f"fused_layer_norm/{tag}_{str(dtype)[6:]}_{N}x{C}"
+        if not wanted(name):
             continue
         x = (torch.randn(N, C, generator=gen, device="cuda") * 1.5 + 0.3).to(dtype)
         w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
@@ -290,67 +317,129 @@ def run_layernorm(gen, results):
         torch.cuda.synchronize()
         ref = reference_layer_norm(x, w, b, 1e-5)
         max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
-        ms = time_ms(lambda: fused_layer_norm(x, w, b, 1e-5))
-        plain_ms = time_ms(lambda: reference_layer_norm(x, w, b, 1e-5))
-        lib_ms = time_ms(lambda: F.layer_norm(x, (C,), w, b, 1e-5))
+        kernel = lambda: fused_layer_norm(x, w, b, 1e-5)
+        lib = lambda: F.layer_norm(x, (C,), w, b, 1e-5)
         nbytes = (2 * x.numel() + 2 * C) * x.element_size()
         b_ms, b_by = bound(nbytes, 8.0 * N * C, torch.float32)
         results.append({
-            "name": f"fused_layer_norm/bfloat16_{N}x{C}",
-            "kernel": "fused_layer_norm", "route": "cuda",
+            "name": name, "kernel": "fused_layer_norm", "route": "cuda",
             "source": "elasticdiffusion_tpu_torch/kernels/csrc/layernorm.cu",
             "replaces": "elasticdiffusion_tpu/kernels/layernorm.py:66",
             "log_key": ("fused_layer_norm", str(dtype), N, C),
+            "body": layernorm_plan(C, dtype).body,
             "max_abs_err": max_abs, "rel_l2_err": rel_l2,
             "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "library": "F.layer_norm"})
+            "bound_ms": b_ms, "bound_by": b_by, "library": "F.layer_norm",
+            **norm_times(kernel, lambda: reference_layer_norm(x, w, b, 1e-5),
+                         lib, True)})
+
+
+def norm_times(kernel, plain, lib, full: bool) -> dict:
+    """Times of one norm case. Every case: event ms of the kernel, the
+    plain version and the library call, and the kernel's device time
+    replayed from a CUDA graph; `full` cases take more samples and the
+    library's device time too."""
+    reps = (3, 15) if full else (1, 3)
+    out = {"ms": time_ms(kernel, *reps),
+           "plain_ms": time_ms(plain, 1, 5 if full else 1),
+           "library_ms": time_ms(lib, *reps)}
+    # about 2 ms of launches a replay
+    n = max(1, min(20, int(2.0 / out["ms"])))
+    out["device_ms"] = graph_ms(kernel, n, 5 if full else 3)
+    out["library_device_ms"] = graph_ms(lib, n) if full else None
+    return out
+
+
+def groupnorm_cases():
+    """(tag, dtype, B, H, W, C, silu, full) of every GroupNorm the paths
+    launch: the UNet's ResNet and Transformer2D norms at the batches the
+    requests give, the VAE decoders (bf16 for SD 1.x / 2.x, fp32 for the
+    SDXL force_upcast decode) and the fp32 background-strip encodes. `full`
+    (timed in full): batch 8, and every VAE shape."""
+    bf, f32 = torch.bfloat16, torch.float32
+    T, F_ = True, False
+    sdxl = ((128, 320, T), (128, 640, T), (128, 960, T), (64, 320, T),
+            (64, 640, F_), (64, 640, T), (64, 960, T), (64, 1280, T),
+            (64, 1920, T), (32, 640, T), (32, 1280, F_), (32, 1280, T),
+            (32, 1920, T), (32, 2560, T))
+    sd = ((64, 320, F_), (64, 320, T), (64, 640, T), (64, 960, T),
+          (32, 320, T), (32, 640, F_), (32, 640, T), (32, 960, T),
+          (32, 1280, T), (32, 1920, T), (16, 640, T), (16, 1280, F_),
+          (16, 1280, T), (16, 1920, T), (16, 2560, T), (8, 1280, F_),
+          (8, 1280, T), (8, 2560, T))
+    cases, seen = [], set()
+
+    def add(tag, dtype, B, H, W, C, silu):
+        if (dtype, B, H, W, C, silu) not in seen:
+            seen.add((dtype, B, H, W, C, silu))
+            cases.append((tag, dtype, B, H, W, C, silu, B == 1 or B == 8))
+
+    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9)),
+                                 ("sd15", sd, (8, 2, 3)),
+                                 ("sd21", sd, (8, 2, 3, 9))):
+        for S, C, silu in shapes:
+            for B in batches:
+                add(tag, bf, B, S, S, C, silu)
+    # decoders at latent (h, w): mid block (and its attention's norm), the
+    # four up blocks, norm_out. SD 1.x / 2.x bf16 at 512x768 and 768x768
+    # px; SDXL fp32 at 1024x1536 and 1536x1536 px
+    for dtype, latents in ((bf, ((64, 96), (96, 96))),
+                           (f32, ((128, 192), (192, 192)))):
+        for h, w in latents:
+            for k, C, silu in ((1, 512, F_), (1, 512, T), (2, 512, T),
+                               (4, 512, T), (4, 256, T), (8, 256, T),
+                               (8, 128, T)):
+                add("vae_decode", dtype, 1, k * h, k * w, C, silu)
+    # fp32 encoders of the background strips (image rows x width): SD 1.x /
+    # 2.x 88x512, SDXL 168x1024 and 176x1024
+    for H, W in ((88, 512), (168, 1024), (176, 1024)):
+        for k, C, silu in ((1, 128, T), (2, 128, T), (2, 256, T), (4, 256, T),
+                           (4, 512, T), (8, 512, F_), (8, 512, T)):
+            add("vae_encode", f32, 1, H // k, W // k, C, silu)
+    return cases
 
 
 def run_groupnorm(gen, results):
     import torch.nn.functional as F
     from elasticdiffusion_tpu_torch.kernels.groupnorm import (
         fused_group_norm, reference_group_norm)
-    dtype = torch.bfloat16
-    shapes = ((8, 64, 64, 320), (8, 32, 32, 1280), (8, 64, 64, 960),
-              (1, 512, 768, 128), (8, 128, 128, 320), (8, 64, 64, 640))
-    for B, H, W, C in shapes:
-        if not wanted(f"fused_group_norm/bfloat16_{B}x{H}x{W}x{C}"):
+    for tag, dtype, B, H, W, C, silu, full in groupnorm_cases():
+        name = (f"fused_group_norm/{tag}_{str(dtype)[6:]}_{B}x{H}x{W}x{C}"
+                + ("_silu" if silu else ""))
+        if not wanted(name):
             continue
         x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 1.5
              + 0.3).to(dtype)
         w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
         b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view for the library
-        for silu in (False, True):
-            out = fused_group_norm(x, w, b, 32, 1e-5, silu)
-            torch.cuda.synchronize()
-            ref = reference_group_norm(x, w, b, 32, 1e-5, silu)
-            max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
-            ms = time_ms(lambda: fused_group_norm(x, w, b, 32, 1e-5, silu))
-            plain_ms = time_ms(
-                lambda: reference_group_norm(x, w, b, 32, 1e-5, silu), 1, 5)
-            if silu:
-                lib = lambda: F.silu(F.group_norm(x_nchw, 32, w, b, 1e-5))
-            else:
-                lib = lambda: F.group_norm(x_nchw, 32, w, b, 1e-5)
-            lib_ms = time_ms(lib)
-            nbytes = (2 * x.numel() + 2 * C) * x.element_size()
-            b_ms, b_by = bound(nbytes, 8.0 * x.numel(), torch.float32)
-            results.append({
-                "name": f"fused_group_norm/bfloat16_{B}x{H}x{W}x{C}"
-                        + ("_silu" if silu else ""),
-                "kernel": "fused_group_norm", "route": "cuda",
-                "source": "elasticdiffusion_tpu_torch/kernels/csrc/groupnorm.cu",
-                "replaces": "elasticdiffusion_tpu/kernels/groupnorm.py:94",
-                "log_key": ("fused_group_norm", str(dtype), B, H, W, C, silu),
-                "max_abs_err": max_abs, "rel_l2_err": rel_l2,
-                "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms,
-                "library": "F.group_norm" + (" + F.silu" if silu else "")})
+        out = fused_group_norm(x, w, b, 32, 1e-5, silu)
+        torch.cuda.synchronize()
+        ref = reference_group_norm(x, w, b, 32, 1e-5, silu)
+        max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
+        del out, ref
+        if silu:
+            lib = lambda: F.silu(F.group_norm(x_nchw, 32, w, b, 1e-5))
+        else:
+            lib = lambda: F.group_norm(x_nchw, 32, w, b, 1e-5)
+        nbytes = (2 * x.numel() + 2 * C) * x.element_size()
+        b_ms, b_by = bound(nbytes, 8.0 * x.numel(), torch.float32)
+        results.append({
+            "name": name, "kernel": "fused_group_norm", "route": "cuda",
+            "source": "elasticdiffusion_tpu_torch/kernels/csrc/groupnorm.cu",
+            "replaces": "elasticdiffusion_tpu/kernels/groupnorm.py:94",
+            "log_key": ("fused_group_norm", str(dtype), B, H, W, C, silu),
+            "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+            "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library": "F.group_norm" + (" + F.silu" if silu else ""),
+            **norm_times(
+                lambda: fused_group_norm(x, w, b, 32, 1e-5, silu),
+                lambda: reference_group_norm(x, w, b, 32, 1e-5, silu),
+                lib, full)})
         del x, x_nchw
-        torch.cuda.empty_cache()
+        if nbytes > (256 << 20):  # the large fp32 decoder shapes
+            torch.cuda.empty_cache()
 
 
 def conv_cases():
@@ -591,8 +680,8 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     """One main path. Every launch count is set to 0 just before and read
     just after; comparison launches of the other phases do not count.
     `checked` is the set of launch-log keys the kernels phase held against a
-    plain version (None when that phase did not run): an attention shape
-    launched here and checked nowhere fails the run."""
+    plain version (None when that phase did not run): a shape launched here
+    and checked nowhere fails the run."""
     import elasticdiffusion_tpu_torch.kernels as kernels
     wrappers, plain = kernel_counts(), plain_cuda_counts()
     conv_on = path["conv_impl"] == "kernel"
@@ -661,11 +750,9 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "conv3x3_operand_copies": wrappers["conv3x3"].copies,
           "cudnn_calls_in_gate": cudnn_in_gate,
           "unchecked_launches": unchecked})
-    unchecked_shapes = [k for k in unchecked
-                        if k.startswith(("flash_attention/", "conv3x3/"))]
-    if unchecked_shapes:
-        fail(f"{path['name']}: attention or conv3x3 launched at shapes that "
-             f"no kernel case checks: {unchecked_shapes}")
+    if unchecked:
+        fail(f"{path['name']}: kernels launched at shapes that no kernel case "
+             f"checks: {sorted(unchecked)}")
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
     if conv_on and cudnn_in_gate:
@@ -789,6 +876,16 @@ def main(argv=None) -> int:
         for kernel in totals:
             if not any(e["name"].startswith(kernel + "/") for e in listed):
                 fail(f"{kernel}: none of the checked shapes ran on a main path")
+        # what each kernel loses on the main paths: launches x (device ms -
+        # bound ms), summed, and the shapes that lose the most
+        gaps = collections.defaultdict(list)
+        for e in listed:
+            gaps[e["name"].split("/")[0]].append(
+                (e["launches"] * (e["device_ms"] - e["bound_ms"]), e["name"]))
+        emit({"phase": "gaps",
+              "ms_over_bound": {k: sum(g for g, _ in v) for k, v in gaps.items()},
+              "largest": {k: sorted(v, reverse=True)[:6]
+                          for k, v in gaps.items()}})
 
     emit({"phase": "total", "seconds": time.time() - t_start})
     print(smi, flush=True)

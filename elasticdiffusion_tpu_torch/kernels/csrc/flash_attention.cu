@@ -28,8 +28,11 @@
 //                       SDXL fp32 decode and of the fp32 strip encodes):
 //                       register-tiled full-precision FMAs with split keys,
 //                       described further below.
-//   flash_mma_bf16      bf16 inputs, head dim 512 (VAE mid block): mma.sync
-//                       m16n8k16 tensor-core products with fp32 accumulation.
+//   flash_wgmma_bf16_d512
+//                       bf16 inputs, head dim 512 (the VAE mid block of the
+//                       SD 1.x / 2.x decodes): the wgmma body with the head
+//                       dim split over two consumer warpgroups and split
+//                       keys, described further below.
 //   flash_fma_f32       fp32 inputs at head dims 40 / 64 / 80 / 160 (on no
 //                       path), full-precision FMA products.
 // No fp32 body uses TF32 or the tensor cores: the JAX kernel pins both
@@ -110,22 +113,55 @@
 //     704-2816 tokens, and the 576 blocks of a 36864-token decode), the wrapper
 //     splits the keys over blocks: each split writes its unnormalised O and
 //     its rows' running max and denominator in fp32 to a workspace, and
-//     flash_combine_f32 merges them in split order (no atomics).
+//     flash_combine merges them in split order (no atomics).
 //
-// The last two bodies share one structure, that of the port's first
-// attention kernel; it stays for bf16 at head dim 512, whose accumulator no
-// warpgroup can hold, and for fp32 at the other head dims. A block owns BM
-// query rows. Per key tile:
-// (1) S = Q K^T goes to shared memory, (2) all threads run the online-softmax
-// update row by row and leave P in shared memory, (3) O += P V with the D
-// columns of the accumulator split across the warps of the block. Step (3)
-// is what lets a D = 512 accumulator (the VAE mid attention) live in
-// registers: no thread holds more than 64 of its floats.
+// flash_wgmma_bf16_d512, and what it does about the bf16 operation bound
+// (the 64 x 512 fp32 O accumulator of a 64-row wgmma tile is 256 registers
+// a thread: more than one warpgroup can hold):
+//   * A block owns 64 query rows with three warpgroups. Consumer warpgroup w
+//     owns head dims [256 w, 256 w + 256) of Q, K, V and O: its half of O is
+//     64 x 256 fp32, 128 registers a thread.
+//   * S = Q K^T in two halves: each consumer computes its half-D partial S
+//     of a 32-key tile with wgmma (16 k-steps, N = 32). The two partials meet
+//     in shared memory behind a named barrier of the 256 consumer threads
+//     (8 KB a warpgroup, two parities so that a tile's writes never meet the
+//     other warpgroup's reads of the tile before); each adds the other's to
+//     its own, and IEEE addition is commutative, so both hold the same S and
+//     run the same online softmax in registers. P, packed to bf16 pairs from
+//     the accumulator layout, is the register A operand of each consumer's
+//     P V wgmmas (N = 64, one a 64-column slab of V, MN-major).
+//   * Registers are the limit: ptxas compiles the whole kernel within the
+//     168 registers a thread that 384 threads allow (setmaxnreg moves them
+//     at run time, not in the compiler's budget), and O, S and P take 152
+//     of them. So every shared-memory address and descriptor of the key
+//     loop is a constant offset from one 32-bit base that the loop re-reads
+//     as opaque at each tile; hoisted out of the loop, the descriptors
+//     spilled, and the spills slowed the loop. Q in registers (64 more a
+//     thread), two chains of S products, and S of the next tile in flight
+//     under the softmax each need more registers, and each was slower for
+//     its spills in development runs.
+//   * One elected thread of the producer warpgroup loads Q once (64 KB, it
+//     stays) and the K and V tiles by TMA into two rings of two slots (32 KB a
+//     slot), each slot with a full and an empty mbarrier. K and V have rings
+//     of their own because they are released at different times: a K slot
+//     when S of its tile is done, a V slot when P V of its tile is done. The
+//     next K tile then loads under the softmax and P V of the current one.
+//     Inside a consumer, S of tile j and P V of tile j-1 are in flight under
+//     the exchange and the softmax of tile j.
+//   * Keys split over blocks where the query rows cannot fill the card (6144
+//     and 9216 tokens give 96 and 144 blocks of 64 rows on 132 SMs): as in
+//     the fp32 body, each split writes its unnormalised fp32 O and its rows'
+//     (m, l) to a workspace, and flash_combine merges them in split order
+//     and writes bf16. No atomics.
 //
-// Head dims of those bodies: 512 (bf16) and 40 / 64 / 80 / 160 (fp32). A head dim that is not a multiple of the tile step is padded with
-// zeros in shared memory only (40 -> 64 and 80 -> 96 for the 32 lanes of the
-// fp32 body): global rows keep their true width, pad columns add exact zeros
-// to Q.K^T, and the pad columns of O are never stored.
+// flash_fma_f32 keeps the structure of the port's first attention kernel. A
+// block owns BM query rows. Per key tile: (1) S = Q K^T goes to shared
+// memory, (2) all threads run the online-softmax update row by row and leave
+// P in shared memory, (3) O += P V with the D columns of the accumulator
+// split across the warps of the block. A head dim that is not a multiple of
+// the 32 lanes is padded with zeros in shared memory only (40 -> 64, 80 ->
+// 96): global rows keep their true width, pad columns add exact zeros to
+// Q.K^T, and the pad columns of O are never stored.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -151,25 +187,18 @@ struct AttnParams {
   float c;  // softmax scale * log2(e)
 };
 
-__device__ __forceinline__ void store_p(float* dst, float p) { *dst = p; }
-__device__ __forceinline__ void store_p(bf16* dst, float p) {
-  *dst = __float2bfloat16(p);
-}
-
 // One key tile of the online softmax. S holds the raw scores of BM rows;
-// THREADS / BM neighbouring lanes share a row. Leaves P in `P` (which may
-// alias S when PT is float), and updates the running max m, the running
-// denominator l and the rescale factor alpha of every row.
-template <int BM, int BN, int THREADS, typename PT>
-__device__ __forceinline__ void softmax_tile(float* S, int lds, PT* P, int ldp,
-                                             float* m_s, float* l_s,
-                                             float* alpha_s, int valid_cols,
-                                             float c, int tid) {
+// THREADS / BM neighbouring lanes share a row. Leaves P in place of S, and
+// updates the running max m, the running denominator l and the rescale
+// factor alpha of every row.
+template <int BM, int BN, int THREADS>
+__device__ __forceinline__ void softmax_tile(float* S, int lds, float* m_s,
+                                             float* l_s, float* alpha_s,
+                                             int valid_cols, float c, int tid) {
   constexpr int TPR = THREADS / BM;  // threads per row: power of two <= 32
   static_assert(TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0, "TPR");
   const int row = tid / TPR, sub = tid % TPR;
   float* srow = S + row * lds;
-  PT* prow = P + row * ldp;
   float mx = -INFINITY;
   for (int j = sub; j < BN; j += TPR)
     if (j < valid_cols) mx = fmaxf(mx, srow[j]);
@@ -182,7 +211,7 @@ __device__ __forceinline__ void softmax_tile(float* S, int lds, PT* P, int ldp,
   for (int j = sub; j < BN; j += TPR) {
     const float p = (j < valid_cols) ? exp2f((srow[j] - m_new) * c) : 0.f;
     sum += p;
-    store_p(prow + j, p);
+    srow[j] = p;
   }
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1)
@@ -192,203 +221,6 @@ __device__ __forceinline__ void softmax_tile(float* S, int lds, PT* P, int ldp,
     m_s[row] = m_new;
     l_s[row] = l_s[row] * alpha + sum;
     alpha_s[row] = alpha;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor-core body
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Two transposed 8x8 bf16 matrices from shared memory: lanes 0-7 give the
-// row addresses of the first, lanes 8-15 of the second. With rows = keys
-// and columns = head dims this is exactly the col-major B fragment of P.V.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const bf16* row_ptr) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row_ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-// D true head dim, DP its zero-padded width in shared memory
-template <int D, int DP, int LD, int THREADS>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               long long row_stride, int rows,
-                                               int valid_rows, int tid) {
-  constexpr int CPR = DP / 8;  // 16-byte chunks per row
-  for (int idx = tid; idx < rows * CPR; idx += THREADS) {
-    const int r = idx / CPR, cc = idx % CPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows && cc < D / 8)
-      val = *reinterpret_cast<const uint4*>(src + (long long)r * row_stride +
-                                            cc * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + cc * 8) = val;
-  }
-}
-
-template <int D, int BM, int BN, int WG>
-struct MmaCfg {
-  static constexpr int NW = (BM / 16) * WG;
-  static constexpr int THREADS = NW * 32;
-  static constexpr int DP = (D + 15) / 16 * 16;  // padded to the mma k-step
-  static constexpr int LD = DP + 8;   // bf16 elements; +16 bytes kills conflicts
-  static constexpr int LDP = BN + 8;  // bf16 elements
-  static constexpr int LDS = BN + 1;  // floats
-  static constexpr size_t SMEM =
-      (size_t)(BM * LD + 2 * BN * LD + BM * LDP) * sizeof(bf16) +
-      (size_t)(BM * LDS + 3 * BM) * sizeof(float);
-};
-
-template <int D, int BM, int BN, int WG>
-__global__ void __launch_bounds__(MmaCfg<D, BM, BN, WG>::THREADS)
-    flash_mma_bf16(AttnParams p) {
-  using Cfg = MmaCfg<D, BM, BN, WG>;
-  constexpr int THREADS = Cfg::THREADS, DP = Cfg::DP, LD = Cfg::LD,
-                LDP = Cfg::LDP, LDS = Cfg::LDS;
-  constexpr int KPW = BN / WG;    // keys per warp in the S phase
-  constexpr int DPW = DP / WG;    // head dims per warp in the P.V phase
-  constexpr int NT_S = KPW / 8;   // 8-wide n-tiles of S per warp
-  constexpr int NT_O = DPW / 8;   // 8-wide n-tiles of O per warp
-  static_assert(KPW % 8 == 0 && DPW % 8 == 0 && D % 8 == 0 && BN % 16 == 0,
-                "tile shape");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BM * LD;
-  bf16* Vs = Ks + BN * LD;
-  bf16* Ps = Vs + BN * LD;
-  float* Ss = reinterpret_cast<float*>(Ps + BM * LDP);
-  float* m_s = Ss + BM * LDS;
-  float* l_s = m_s + BM;
-  float* a_s = l_s + BM;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-
-  const bf16* qp = static_cast<const bf16*>(p.q) + (long long)b * p.q_sb +
-                   (long long)h * p.q_sh + (long long)q0 * p.q_ss;
-  const bf16* kp = static_cast<const bf16*>(p.k) + (long long)b * p.k_sb +
-                   (long long)h * p.k_sh;
-  const bf16* vp = static_cast<const bf16*>(p.v) + (long long)b * p.v_sb +
-                   (long long)h * p.v_sh;
-
-  load_tile_bf16<D, DP, LD, THREADS>(Qs, qp, p.q_ss, BM, min(BM, p.Sq - q0), tid);
-  if (tid < BM) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-    a_s[tid] = 0.f;
-  }
-
-  const int rg = warp / WG, wg = warp % WG;
-  const int r0 = rg * 16;
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  for (int kt = 0; kt < p.Sk; kt += BN) {
-    const int valid = min(BN, p.Sk - kt);
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile_bf16<D, DP, LD, THREADS>(Ks, kp + (long long)kt * p.k_ss, p.k_ss, BN,
-                                   valid, tid);
-    load_tile_bf16<D, DP, LD, THREADS>(Vs, vp + (long long)kt * p.v_ss, p.v_ss, BN,
-                                   valid, tid);
-    __syncthreads();
-
-    // (1) S = Q K^T for rows r0..r0+15, keys wg*KPW..+KPW
-    float s[NT_S][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll 8
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const bf16* qa = Qs + (r0 + g) * LD + ks * 16 + 2 * tig;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qa);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(qa + 8);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 8);
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        const bf16* kb = Ks + (wg * KPW + nt * 8 + g) * LD + ks * 16 + 2 * tig;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kb);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kb + 8);
-        mma_bf16_16816(s[nt], a0, a1, a2, a3, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      const int col = wg * KPW + nt * 8 + 2 * tig;
-      Ss[(r0 + g) * LDS + col] = s[nt][0];
-      Ss[(r0 + g) * LDS + col + 1] = s[nt][1];
-      Ss[(r0 + g + 8) * LDS + col] = s[nt][2];
-      Ss[(r0 + g + 8) * LDS + col + 1] = s[nt][3];
-    }
-    __syncthreads();
-
-    // (2) online softmax; P rounded to bf16 for the tensor cores
-    softmax_tile<BM, BN, THREADS, bf16>(Ss, LDS, Ps, LDP, m_s, l_s, a_s, valid,
-                                        p.c, tid);
-    __syncthreads();
-
-    // (3) O = alpha * O + P V for rows r0..r0+15, head dims wg*DPW..+DPW
-    const float al = a_s[r0 + g], ah = a_s[r0 + g + 8];
-#pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      acc[nt][0] *= al;
-      acc[nt][1] *= al;
-      acc[nt][2] *= ah;
-      acc[nt][3] *= ah;
-    }
-#pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-      const bf16* pa = Ps + (r0 + g) * LDP + ks * 16 + 2 * tig;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(pa);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(pa + 8 * LDP);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(pa + 8);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(pa + 8 * LDP + 8);
-      const bf16* vrow = Vs + (ks * 16 + (lane & 15)) * LD + wg * DPW;
-#pragma unroll
-      for (int nt = 0; nt < NT_O; ++nt) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vrow + nt * 8);
-        mma_bf16_16816(acc[nt], a0, a1, a2, a3, b0, b1);
-      }
-    }
-  }
-
-  // l_s was last written before the barrier that precedes the final P.V
-  const int row_lo = q0 + r0 + g, row_hi = row_lo + 8;
-  const float il = 1.f / l_s[r0 + g], ih = 1.f / l_s[r0 + g + 8];
-  bf16* op = static_cast<bf16*>(p.o);
-#pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt) {
-    const int col = wg * DPW + nt * 8 + 2 * tig;
-    if (col >= D) continue;  // a pad column
-    if (row_lo < p.Sq) {
-      bf16* dst = op + (((long long)b * p.Sq + row_lo) * p.H + h) * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dst) =
-          __floats2bfloat162_rn(acc[nt][0] * il, acc[nt][1] * il);
-    }
-    if (row_hi < p.Sq) {
-      bf16* dst = op + (((long long)b * p.Sq + row_hi) * p.H + h) * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dst) =
-          __floats2bfloat162_rn(acc[nt][2] * ih, acc[nt][3] * ih);
-    }
   }
 }
 
@@ -781,6 +613,289 @@ __global__ void __launch_bounds__(WgCfg<D, NCWG, BN, STAGES>::THREADS,
 }
 
 // ---------------------------------------------------------------------------
+// bf16, head dim 512: wgmma + TMA body, the head dim split over two
+// consumer warpgroups
+// ---------------------------------------------------------------------------
+
+// 64 query rows, 32-key tiles; consumer warpgroup w owns the four 64-column
+// slabs 4w..4w+3 of Q, K, V and O.
+struct W512Cfg {
+  static constexpr int D = 512, BM = 64, BN = 32, THREADS = 384, SLOTS = 2;
+  static constexpr int Q_SLAB = BM * 128, Q_BYTES = 8 * Q_SLAB;  // 64 KB
+  static constexpr int SLAB = BN * 128, TILE_BYTES = 8 * SLAB;   // 32 KB
+  static constexpr int NS = BN / 2;  // fp32 registers of S a thread
+  // the S exchange: 2 parities x 2 warpgroups x NS floats x 128 threads
+  static constexpr int X_BYTES = 2 * 2 * NS * 128 * 4;
+  static constexpr int REGS_PRODUCER = 24, REGS_CONSUMER = 240;
+  // 1024 bytes of slack to align the tiles, 128 bytes of barriers
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + 2 * SLOTS * TILE_BYTES + X_BYTES + 128;
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// A value the compiler must take as computed here: addresses and
+// descriptors derived from it by one add each are not hoisted out of the
+// key loop (the 16 descriptors of S alone would hold 32 registers, and the
+// kernel has none to spare).
+__device__ __forceinline__ uint32_t opaque(uint32_t d) {
+  asm volatile("" : "+r"(d));
+  return d;
+}
+
+// S (64 x 32) = this warpgroup's half of Q K^T: 16 k-steps over the four
+// slabs of its head dims (shared-memory addresses of its Q and K slabs).
+__device__ __forceinline__ void start_s_d512(float (&s)[W512Cfg::NS],
+                                             uint32_t q_half, uint32_t k_half) {
+  const uint64_t qd = smem_desc_sw128(q_half), kd = smem_desc_sw128(k_half);
+#pragma unroll
+  for (int ks = 0; ks < 16; ++ks) {
+    // descriptors count 16-byte units: slab ks / 4, 32 bytes a k-step
+    wgmma_ss<32>(s, qd + (ks / 4) * (W512Cfg::Q_SLAB >> 4) + 2 * (ks % 4),
+                 kd + (ks / 4) * (W512Cfg::SLAB >> 4) + 2 * (ks % 4), ks > 0);
+  }
+  wgmma_commit();
+}
+
+// O (64 x 256) += P V of one 32-key tile: two k-steps of 16 keys (2048
+// bytes of each slab), one wgmma of N = 64 a slab.
+__device__ __forceinline__ void start_pv_d512(float (&o)[128],
+                                              const uint32_t (&pk)[8],
+                                              uint32_t v_half) {
+  const uint64_t vd = smem_desc_sw128(v_half);
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      wgmma_rs_n64(o + 32 * i, pk[4 * ks], pk[4 * ks + 1], pk[4 * ks + 2],
+                   pk[4 * ks + 3], vd + i * (W512Cfg::SLAB >> 4) + 128 * ks);
+  }
+  wgmma_commit();
+}
+
+// Adds the other consumer warpgroup's partial S to this one's. Thread t of
+// a warpgroup writes register i at float i * 128 + t of its own area (xch:
+// the shared-memory address of the exchange).
+__device__ __forceinline__ void exchange_s(float (&s)[W512Cfg::NS],
+                                           uint32_t xch, int parity, int wg,
+                                           int t) {
+  constexpr int NS = W512Cfg::NS;
+  const uint32_t area = xch + 4 * t;
+  const uint32_t own = area + (parity * 2 + wg) * NS * 128 * 4;
+  const uint32_t other = area + (parity * 2 + (wg ^ 1)) * NS * 128 * 4;
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(own + i * 512), "f"(s[i])
+                 : "memory");
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumers only
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    float x;
+    asm volatile("ld.shared.f32 %0, [%1];\n"
+                 : "=f"(x)
+                 : "r"(other + i * 512)
+                 : "memory");
+    s[i] += x;
+  }
+}
+
+// Split z of `splits` takes key tiles [T z / splits, T (z+1) / splits) of
+// the T = ceil(Sk / 32) tiles. With one split the block writes the bf16
+// output; with more, its unnormalised O and per row (m, l) go to the
+// workspace, laid out as for flash_fma_f32_d512.
+__global__ void __launch_bounds__(W512Cfg::THREADS, 1)
+    flash_wgmma_bf16_d512(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, AttnParams p,
+                          int splits, float* ws) {
+  using Cfg = W512Cfg;
+  constexpr int BN = Cfg::BN, NS = Cfg::NS, TILE_BYTES = Cfg::TILE_BYTES;
+
+  extern __shared__ unsigned char smem_dyn[];
+  // the swizzle works on address bits: tiles start on 1024-byte boundaries
+  unsigned char* base =
+      smem_dyn + ((1024u - (smem_u32(smem_dyn) & 1023u)) & 1023u);
+  unsigned char* Qs = base;
+  unsigned char* Ks = Qs + Cfg::Q_BYTES;                // SLOTS K tiles
+  unsigned char* Vs = Ks + Cfg::SLOTS * TILE_BYTES;     // SLOTS V tiles
+  float* xch = reinterpret_cast<float*>(Vs + Cfg::SLOTS * TILE_BYTES);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(xch) + Cfg::X_BYTES);
+  uint64_t* k_full = q_bar + 1;
+  uint64_t* k_empty = k_full + Cfg::SLOTS;
+  uint64_t* v_full = k_empty + Cfg::SLOTS;
+  uint64_t* v_empty = v_full + Cfg::SLOTS;
+
+  const int q0 = blockIdx.x * Cfg::BM, h = blockIdx.y;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int T = (p.Sk + BN - 1) / BN;
+  const int t0 = (int)((long long)T * split / splits);
+  const int nt = (int)((long long)T * (split + 1) / splits) - t0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+#pragma unroll
+    for (int s = 0; s < Cfg::SLOTS; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);  // lane 0 of every consumer warp
+      mbar_init(&v_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- producer: the whole lifetime of this warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Cfg::REGS_PRODUCER));
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_bar, Cfg::Q_BYTES);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        tma_load_4d(Qs + i * Cfg::Q_SLAB, &tq, q_bar, 64 * i, h, q0, b);
+      for (int j = 0; j < nt; ++j) {
+        const int st = j % Cfg::SLOTS;
+        const uint32_t free_parity = ((j / Cfg::SLOTS) & 1u) ^ 1u;
+        const int key0 = (t0 + j) * BN;
+        mbar_wait(&k_empty[st], free_parity);
+        mbar_arrive_expect_tx(&k_full[st], TILE_BYTES);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          tma_load_4d(Ks + st * TILE_BYTES + i * Cfg::SLAB, &tk, &k_full[st],
+                      64 * i, h, key0, b);
+        mbar_wait(&v_empty[st], free_parity);
+        mbar_arrive_expect_tx(&v_full[st], TILE_BYTES);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          tma_load_4d(Vs + st * TILE_BYTES + i * Cfg::SLAB, &tv, &v_full[st],
+                      64 * i, h, key0, b);
+      }
+    }
+  } else {
+    // ---- consumer: 64 query rows, head dims [256 wg, 256 wg + 256) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        Cfg::REGS_CONSUMER));
+    const int t = threadIdx.x & 127, lane = t & 31, warp = t >> 5;
+    // Every shared-memory address of the key loop is a constant offset from
+    // one 32-bit base, taken as opaque at each tile: one register, where
+    // the addresses of both slots would take many.
+    const uint32_t sbase = smem_u32(base);
+    const uint32_t q_half = 4 * wg * Cfg::Q_SLAB;
+    const uint32_t k_half = Cfg::Q_BYTES + 4 * wg * Cfg::SLAB;
+    const uint32_t v_half = k_half + Cfg::SLOTS * TILE_BYTES;
+    constexpr uint32_t X_OFF = Cfg::Q_BYTES + 2 * Cfg::SLOTS * TILE_BYTES;
+    constexpr uint32_t BAR = X_OFF + Cfg::X_BYTES;  // the barriers, as above
+    constexpr uint32_t K_FULL = BAR + 8, K_EMPTY = K_FULL + 8 * Cfg::SLOTS,
+                       V_FULL = K_EMPTY + 8 * Cfg::SLOTS,
+                       V_EMPTY = V_FULL + 8 * Cfg::SLOTS;
+
+    float o[128], s[NS];
+    uint32_t pk[NS / 2];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
+
+    mbar_wait(sbase + BAR, 0);
+    mbar_wait(sbase + K_FULL, 0);
+    wgmma_fence();
+    start_s_d512(s, sbase + q_half, sbase + k_half);
+    wgmma_wait<0>();
+    pin(s);
+    if (lane == 0) mbar_arrive(sbase + K_EMPTY);
+    exchange_s(s, sbase + X_OFF, 0, wg, t);
+    softmax_regs<NS>(s, p.Sk - t0 * BN, p.c, m0, m1, l0, l1, a0, a1, lane);
+    pack_p<NS>(s, pk);
+
+    for (int j = 1; j < nt; ++j) {
+      const uint32_t sb = opaque(sbase);
+      const uint32_t st = (j % Cfg::SLOTS), prev = (j - 1) % Cfg::SLOTS;
+      mbar_wait(sb + K_FULL + 8 * st, (j / Cfg::SLOTS) & 1);
+      mbar_wait(sb + V_FULL + 8 * prev, ((j - 1) / Cfg::SLOTS) & 1);
+      wgmma_fence();
+      // S of tile j, and behind it in the tensor cores O += P V of tile j-1
+      start_s_d512(s, sb + q_half, sb + k_half + st * TILE_BYTES);
+      start_pv_d512(o, pk, sb + v_half + prev * TILE_BYTES);
+      wgmma_wait<1>();  // S is there; P V runs under the exchange and softmax
+      pin(s);
+      if (lane == 0) mbar_arrive(sb + K_EMPTY + 8 * st);
+      exchange_s(s, sb + X_OFF, j & 1, wg, t);
+      softmax_regs<NS>(s, p.Sk - (t0 + j) * BN, p.c, m0, m1, l0, l1, a0, a1,
+                       lane);
+      wgmma_wait<0>();
+      pin(o);
+      pin(pk);
+      pin(s);
+      if (lane == 0) mbar_arrive(sb + V_EMPTY + 8 * prev);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        o[4 * i] *= a0;
+        o[4 * i + 1] *= a0;
+        o[4 * i + 2] *= a1;
+        o[4 * i + 3] *= a1;
+      }
+      pack_p<NS>(s, pk);
+    }
+    const uint32_t last = (nt - 1) % Cfg::SLOTS;
+    mbar_wait(sbase + V_FULL + 8 * last, ((nt - 1) / Cfg::SLOTS) & 1);
+    wgmma_fence();
+    start_pv_d512(o, pk, sbase + v_half + last * TILE_BYTES);
+    wgmma_wait<0>();
+    pin(o);
+    pin(pk);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const int row_lo = q0 + warp * 16 + (lane >> 2), row_hi = row_lo + 8;
+    const int col = 256 * wg + 2 * (lane & 3);
+    const long long ri_lo = ((long long)b * p.Sq + row_lo) * p.H + h;
+    const long long ri_hi = ((long long)b * p.Sq + row_hi) * p.H + h;
+    if (splits == 1) {
+      const float i0 = 1.f / l0, i1 = 1.f / l1;
+      bf16* dst_lo = static_cast<bf16*>(p.o) + ri_lo * 512 + col;
+      bf16* dst_hi = static_cast<bf16*>(p.o) + ri_hi * 512 + col;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (row_lo < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(dst_lo + 8 * i) =
+              __floats2bfloat162_rn(o[4 * i] * i0, o[4 * i + 1] * i0);
+        if (row_hi < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(dst_hi + 8 * i) =
+              __floats2bfloat162_rn(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
+      }
+    } else {
+      const long long R = (long long)p.B * p.Sq * p.H;  // rows of all heads
+      float* dst_lo = ws + ((long long)split * R + ri_lo) * 512 + col;
+      float* dst_hi = ws + ((long long)split * R + ri_hi) * 512 + col;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (row_lo < p.Sq)
+          *reinterpret_cast<float2*>(dst_lo + 8 * i) =
+              make_float2(o[4 * i], o[4 * i + 1]);
+        if (row_hi < p.Sq)
+          *reinterpret_cast<float2*>(dst_hi + 8 * i) =
+              make_float2(o[4 * i + 2], o[4 * i + 3]);
+      }
+      if (wg == 0 && (lane & 3) == 0) {
+        float* ml = ws + (long long)splits * R * 512 + 2 * (long long)split * R;
+        if (row_lo < p.Sq) {
+          ml[2 * ri_lo] = m0;
+          ml[2 * ri_lo + 1] = l0;
+        }
+        if (row_hi < p.Sq) {
+          ml[2 * ri_hi] = m1;
+          ml[2 * ri_hi + 1] = l1;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: full-precision FMA body
 // ---------------------------------------------------------------------------
 
@@ -893,8 +1008,7 @@ __global__ void __launch_bounds__(256) flash_fma_f32(AttnParams p) {
     __syncthreads();
 
     // (2) online softmax, P written over S
-    softmax_tile<BM, BN, THREADS, float>(Ss, LDS, Ss, LDS, m_s, l_s, a_s, valid,
-                                         p.c, tid);
+    softmax_tile<BM, BN, THREADS>(Ss, LDS, m_s, l_s, a_s, valid, p.c, tid);
     __syncthreads();
 
     // (3) O = alpha * O + P V: warp owns rows warp*R.., lane owns dims lane+32k
@@ -961,7 +1075,7 @@ struct F512Cfg {
 // the T = ceil(Sk / 64) tiles. With one split the block writes the output;
 // with more it writes its unnormalised O and, per row, the running max m
 // and denominator l to the workspace (O: splits x B*Sq*H x 512 floats, then
-// (m, l): splits x B*Sq*H x 2), and flash_combine_f32 merges them.
+// (m, l): splits x B*Sq*H x 2), and flash_combine merges them.
 __global__ void __launch_bounds__(256, 1)
     flash_fma_f32_d512(AttnParams p, int splits, float* ws) {
   using Cfg = F512Cfg;
@@ -1203,13 +1317,26 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-// Merges the splits of flash_fma_f32_d512, split 0 first: with M the largest
-// running max of a row and w_z = exp2((m_z - M) c), the output is
-// sum_z w_z O_z / sum_z w_z l_z. One block of 128 threads a row, four head
-// dims a thread.
+// Merges the key splits of the head-dim-512 bodies, split 0 first: with M
+// the largest running max of a row and w_z = exp2((m_z - M) c), the output
+// is sum_z w_z O_z / sum_z w_z l_z, written as OutT. One block of 128
+// threads a row, four head dims a thread.
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(bf16* dst, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+template <typename OutT>
 __global__ void __launch_bounds__(128)
-    flash_combine_f32(const float* ws, int splits, long long R, float c,
-                      float* out) {
+    flash_combine(const float* ws, int splits, long long R, float c,
+                  OutT* out) {
   constexpr int D = 512;
   const long long r = blockIdx.x;
   const float* ml = ws + (long long)splits * R * D;
@@ -1228,8 +1355,8 @@ __global__ void __launch_bounds__(128)
     acc.w = fmaf(w, t.w, acc.w);
   }
   const float inv = 1.f / den;
-  *reinterpret_cast<float4*>(out + r * D + 4 * threadIdx.x) =
-      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  store4(out + r * D + 4 * threadIdx.x,
+         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
 }
 
 cudaError_t launch_f512(const AttnParams& p, int splits, float* ws,
@@ -1247,7 +1374,7 @@ cudaError_t launch_f512(const AttnParams& p, int splits, float* ws,
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long R = (long long)p.B * p.Sq * p.H;
-  flash_combine_f32<<<(unsigned)R, 128, 0, stream>>>(
+  flash_combine<float><<<(unsigned)R, 128, 0, stream>>>(
       ws, splits, R, p.c, static_cast<float*>(p.o));
   return cudaGetLastError();
 }
@@ -1298,21 +1425,53 @@ cudaError_t launch_wgmma(const AttnParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_w512(const AttnParams& p, int splits, float* ws,
+                        cudaStream_t stream) {
+  using Cfg = W512Cfg;
+  const int T = (p.Sk + Cfg::BN - 1) / Cfg::BN;
+  if (splits < 1 || splits > T || (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!make_tensor_map(&tq, p.q, p.B, p.Sq, p.H, Cfg::D, p.q_sb, p.q_ss,
+                       p.q_sh, Cfg::BM) ||
+      !make_tensor_map(&tk, p.k, p.B, p.Sk, p.H, Cfg::D, p.k_sb, p.k_ss,
+                       p.k_sh, Cfg::BN) ||
+      !make_tensor_map(&tv, p.v, p.B, p.Sk, p.H, Cfg::D, p.v_sb, p.v_ss,
+                       p.v_sh, Cfg::BN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_wgmma_bf16_d512;
+  static bool configured = false;  // the attribute once, not at every launch
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid((p.Sq + Cfg::BM - 1) / Cfg::BM, p.H, p.B * splits);
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(tq, tk, tv, p, splits, ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long R = (long long)p.B * p.Sq * p.H;
+  flash_combine<bf16><<<(unsigned)R, 128, 0, stream>>>(
+      ws, splits, R, p.c, static_cast<bf16*>(p.o));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* ed_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = bf16, 1 = fp32. plan: 0 = the mma.sync (bf16, D = 512) or FMA
-// (fp32, D = 40, 64, 80, 160) body of the head dim; 1-3 = the wgmma body
-// (bf16, D = 40, 64, 80 or 160): 128 query rows a block and a ring of
-// 128-key (D = 160: 64-key) tiles (1), 64 query rows and a ring of 64-key
-// tiles (2), or 64 query rows and one tile of at most 80 keys (3); 4 = the
-// register-tiled fp32 body at D = 512, its keys split over `splits` blocks
-// whose partials go to `ws` (splits x B*Sq*H x 514 floats; unused at one
-// split). Returns a cudaError_t, or -1 for a (dtype, head dim, plan) that
-// has no instantiation.
+// dtype: 0 = bf16, 1 = fp32. plan: 0 = the FMA body (fp32, D = 40, 64, 80,
+// 160); 1-3 = the wgmma body (bf16, D = 40, 64, 80 or 160): 128 query rows
+// a block and a ring of 128-key (D = 160: 64-key) tiles (1), 64 query rows
+// and a ring of 64-key tiles (2), or 64 query rows and one tile of at most
+// 80 keys (3); 4 = the register-tiled fp32 body at D = 512; 5 = the wgmma
+// body for bf16 at D = 512. Plans 4 and 5 split the keys over `splits`
+// blocks whose partials go to `ws` (splits x B*Sq*H x 514 floats; unused at
+// one split). Returns a cudaError_t, or -1 for a (dtype, head dim, plan)
+// that has no instantiation.
 extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int Sq, int Sk, int H, int D,
                                   long long q_sb, long long q_ss, long long q_sh,
@@ -1332,6 +1491,10 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
     if (dtype != 1 || D != 512) return -1;
     return (int)launch_f512(p, splits, static_cast<float*>(ws), st);
   }
+  if (plan == 5) {
+    if (dtype != 0 || D != 512) return -1;
+    return (int)launch_w512(p, splits, static_cast<float*>(ws), st);
+  }
   if (plan != 0) {
     if (dtype != 0) return -1;
 // per head dim: keys a tile and stages of plan 1, stages of plan 2
@@ -1347,11 +1510,6 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
     ED_FLASH_WGMMA(160, 64, 3, 2)
 #undef ED_FLASH_WGMMA
     return -1;
-  }
-  if (dtype == 0 && D == 512) {
-    using Cfg = MmaCfg<512, 32, 32, 4>;
-    return (int)launch(flash_mma_bf16<512, 32, 32, 4>, Cfg::SMEM, Cfg::THREADS,
-                       32, p, st);
   }
 #define ED_FLASH_F32(DD)                                                      \
   if (dtype == 1 && D == DD) {                                                \

@@ -49,9 +49,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive(smem_u32(bar));
 }
 
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
@@ -65,8 +68,7 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
 
 // Waits until the phase of the given parity has completed. A wait that
 // outlasts 2^33 cycles (seconds) traps.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
   const long long t0 = clock64();
   uint32_t done = 0, spins = 0;
   while (true) {
@@ -82,6 +84,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if ((++spins & 0x3ffu) == 0 && clock64() - t0 > (1ll << 33)) __trap();
   }
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
 }
 
 // One box of a (D, H, S, B) tensor map into shared memory; completion is
@@ -104,12 +109,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // offset; for the MN-major operand (V: the row index is the reduction dim)
 // it is again the distance between 8-row groups, and the other field (the
 // distance between 64-column slabs) is unused at N = 64.
-__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
-  uint64_t d = static_cast<uint64_t>((smem_u32(p) & 0x3ffffu) >> 4);
+__device__ __forceinline__ uint64_t smem_desc_sw128(uint32_t addr) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3ffffu) >> 4);
   d |= static_cast<uint64_t>(1024 >> 4) << 16;
   d |= static_cast<uint64_t>(1024 >> 4) << 32;
   d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
   return d;
+}
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
+  return smem_desc_sw128(smem_u32(p));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -141,6 +149,27 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,

@@ -10,14 +10,18 @@ and cross) and at head dims 40 / 80 / 160 (the SD 1.x UNet: 8 heads at 320 /
 zeros) runs the body designed for Hopper: both products are ``wgmma``, K and
 V arrive by TMA in a ring of shared-memory stages guarded by ``mbarrier``s, a
 producer warpgroup loads while consumer warpgroups compute, and the softmax
-stays in the accumulator registers. bf16 at head dim 512 (the VAE mid block)
-runs the ``mma.sync`` body. fp32 at head dim 512 (the VAE mid block of the
-SDXL fp32 decode and the fp32 strip encodes) runs a register-tiled body of
-full-precision FMAs (no TF32, as the JAX kernel's ``Precision.HIGHEST``):
-Q resident in shared memory, K and V streamed through a ``cp.async`` ring,
-and the keys split over blocks where the query rows cannot fill the card,
-each split's (m, l, O) merged in split order by a second kernel. fp32 at the
-other head dims runs the port's first FMA body.
+stays in the accumulator registers. bf16 at head dim 512 (the VAE mid block
+of the SD 1.x / 2.x decodes) runs a body of the same kind whose two consumer
+warpgroups each own half of the head dim (a 64 x 512 fp32 accumulator is
+more than one warpgroup can hold): each computes its half of S, the halves
+meet in shared memory, and both run the same softmax; the keys are split
+over blocks where the query rows cannot fill the card. fp32 at head dim 512
+(the VAE mid block of the SDXL fp32 decode and the fp32 strip encodes) runs
+a register-tiled body of full-precision FMAs (no TF32, as the JAX kernel's
+``Precision.HIGHEST``): Q resident in shared memory, K and V streamed
+through a ``cp.async`` ring, and the keys split the same way. Split keys
+leave each split's (m, l, O) in a workspace, merged in split order by a
+second kernel. fp32 at the other head dims runs the port's first FMA body.
 
 Bound on this card: operations, ``4*B*H*Sq*Sk*D``, against the bf16 tensor
 core peak (fp32: the CUDA-core peak); for cross-attention (Sk = 77) the q and
@@ -57,12 +61,17 @@ SMEM_PER_BLOCK = 232448   # bytes of shared memory one block may use
 # floats, and 64 floats of rescale factors (F512Cfg in
 # csrc/flash_attention.cu)
 F512_SMEM = (64 * 516 + 2 * 64 * 132 + 64 * 68 + 64) * 4
+# the bf16 body at head dim 512: 64 query rows and 32-key tiles; Q (64 KB),
+# two slots each of K and V tiles (32 KB a slot), the S exchange (32 KB),
+# 1024 bytes of slack to align the tiles and 128 of barriers (W512Cfg in
+# csrc/flash_attention.cu)
+W512_SMEM = 1024 + 65536 + 4 * 32768 + 32768 + 128
 MAX_KEY_SPLITS = 16
 
 
 class AttentionPlan(NamedTuple):
     """What one launch runs: the body, its tile and what that costs."""
-    body: str        # 'wgmma', 'mma.sync' or 'fma'
+    body: str        # 'wgmma', 'wgmma.d512', 'fma.tiled' or 'fma'
     code: int        # the C entry's ``plan`` argument
     bm: int          # query rows of a block
     bn: int          # keys of a tile
@@ -74,7 +83,8 @@ class AttentionPlan(NamedTuple):
 
 
 def key_splits(row_blocks: int, key_tiles: int) -> int:
-    """Key splits of the fp32 D = 512 body. A block's time is modelled as
+    """Key splits of the D = 512 bodies, with ``key_tiles`` counted in
+    tiles of 64 keys. A block's time is modelled as
     its key tiles plus half a tile for its prologue (Q, the ring's fill),
     the grid's as that times its waves of 132 blocks. At least 2 splits
     where the query rows alone leave SMs idle; a count replaces a smaller
@@ -122,19 +132,16 @@ def attention_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int,
         smem = 1024 + nslab * 128 * (bm + stages * 2 * bn) + 128
         return AttentionPlan("wgmma", code, bm, bn, stages, 128 + 2 * bm, smem,
                              B * H * -(-Sq // bm))
-    if dtype == torch.float32 and D == 512:
+    if D == 512:
         row_blocks = B * H * -(-Sq // 64)
         splits = key_splits(row_blocks, -(-Sk // 64))
+        if dtype == torch.bfloat16:
+            # two consumer warpgroups and a producer; K and V rings of 2
+            return AttentionPlan("wgmma.d512", 5, 64, 32, 2, 384, W512_SMEM,
+                                 row_blocks * splits, splits)
         return AttentionPlan("fma.tiled", 4, 64, 64, 2, 256, F512_SMEM,
                              row_blocks * splits, splits)
-    bm = bn = 32 if D == 512 else 64
-    if dtype == torch.bfloat16:              # D = 512 only
-        wg = 4                               # warps that share a row group
-        ld = -(-D // 16) * 16 + 8
-        smem = (bm * ld + 2 * bn * ld + bm * (bn + 8)) * 2 \
-            + (bm * (bn + 1) + 3 * bm) * 4
-        return AttentionPlan("mma.sync", 0, bm, bn, 1, bm // 16 * wg * 32,
-                             smem, B * H * -(-Sq // bm))
+    bm = bn = 64                             # fp32 at D = 40, 64, 80, 160
     dp = -(-D // 32) * 32
     smem = (bm * (dp + 1) + bn * (dp + 1) + bn * dp + bm * (bn + 1) + 3 * bm) * 4
     return AttentionPlan("fma", 0, bm, bn, 1, 256, smem, B * H * -(-Sq // bm))
@@ -155,20 +162,23 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def split_key_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        splits: int) -> torch.Tensor:
-    """Plain version of the split-key path of the fp32 body: per split of
-    the 64-key tiles, the fp32 running max m, denominator l and unnormalised
-    O of every row; merged in split order as sum_z w_z O_z / sum_z w_z l_z,
-    w_z = exp(m_z - max_z m_z). fp32 throughout (P is not rounded)."""
+                        splits: int, bn: int = 64) -> torch.Tensor:
+    """Plain version of the split-key path of the D = 512 bodies: per split
+    of the ``bn``-key tiles, the fp32 running max m, denominator l and
+    unnormalised O of every row; merged in split order as
+    sum_z w_z O_z / sum_z w_z l_z, w_z = exp(m_z - max_z m_z). P is rounded
+    to ``v.dtype`` before P V inside each split (bf16: as the kernel rounds
+    it; fp32: no rounding), while l sums the unrounded fp32 P."""
     D = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
     parts = []
-    for lo, hi in key_split_ranges(k.shape[1], splits):
+    for lo, hi in key_split_ranges(k.shape[1], splits, bn):
         lg = logits[..., lo:hi]
         m = lg.amax(-1, keepdim=True)
         p = torch.exp(lg - m)
+        pv = p.to(v.dtype).float()
         parts.append((m, p.sum(-1, keepdim=True),
-                      torch.einsum("bhqk,bkhd->bhqd", p, v[:, lo:hi].float())))
+                      torch.einsum("bhqk,bkhd->bhqd", pv, v[:, lo:hi].float())))
     top = torch.stack([m for m, _, _ in parts]).amax(0)
     num = den = 0.0
     for m, l, o in parts:

@@ -2,7 +2,10 @@
 
 Replaces the Pallas TPU kernel ``fused_layer_norm`` / ``_ln_kernel`` of
 ``elasticdiffusion_tpu/kernels/layernorm.py`` with ``csrc/layernorm.cu``: one
-warp per row, one read and one write of the row, fp32 statistics.
+read and one write of the row, fp32 statistics. The widths of the paths
+(320, 640, 768, 1024, 1280) run a body instantiated for each width: the row
+in registers, weight and bias in shared memory once a block, a persistent
+grid. Other widths run a generic body. ``layernorm_plan`` says which.
 
 Bound on this card: bytes (the activation read once and written once).
 
@@ -14,12 +17,44 @@ kernel body does; the JAX package's own plain version uses
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build, note_launch, wants_kernel
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+# widths with a body of their own (``ED_LN_ROWS`` in csrc/layernorm.cu):
+# lanes that share a row in bf16 and in fp32, the most of 8, 16, 32 that
+# divide the row's 16-byte chunks evenly
+ROWS_WIDTHS = {320: (8, 16), 640: (16, 32), 768: (32, 32), 1024: (32, 32),
+               1280: (32, 32)}
+THREADS = 256
+
+
+class LayerNormPlan(NamedTuple):
+    """What one launch runs."""
+    body: str             # 'rows' (a width of its own) or 'any'
+    code: int             # the C entry's ``plan`` argument
+    lanes_per_row: int
+    chunks_per_lane: int  # 16-byte chunks a lane holds ('rows'); 0 for 'any'
+    threads: int
+
+
+def layernorm_plan(C: int, dtype: torch.dtype,
+                   aligned: bool = True) -> LayerNormPlan:
+    """The body of ``fused_layer_norm`` for a row of C channels; mirrors the
+    instantiations of ``csrc/layernorm.cu``. ``aligned``: x, y, weight and
+    bias start on 16 bytes."""
+    if dtype not in _DTYPES:
+        raise NotImplementedError(f"fused_layer_norm has no kernel for {dtype}")
+    if C in ROWS_WIDTHS and aligned:
+        lpr = ROWS_WIDTHS[C][_DTYPES[dtype]]
+        vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+        return LayerNormPlan("rows", 1, lpr, C // (vec * lpr), THREADS)
+    return LayerNormPlan("any", 0, 32, 0, 128)
 
 
 def reference_layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -63,6 +98,9 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     vec = 16 // x.element_size()
     vectorized = int(C % vec == 0 and x.data_ptr() % 16 == 0
                      and y.data_ptr() % 16 == 0)
+    aligned = bool(vectorized and weight.data_ptr() % 16 == 0
+                   and bias.data_ptr() % 16 == 0)
+    plan = layernorm_plan(C, x.dtype, aligned)
     lib = build.load("layernorm")
     fn = lib.ed_layer_norm
     if not fn.argtypes:
@@ -70,12 +108,12 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), w_bf16,
-                  y.data_ptr(), N, C, float(eps), _DTYPES[x.dtype], vectorized,
-                  stream)
+                  y.data_ptr(), N, C, float(eps), _DTYPES[x.dtype], plan.code,
+                  vectorized, stream)
     build.check(lib, code, "fused_layer_norm")
     fused_layer_norm.launches += 1
     note_launch("fused_layer_norm", str(x.dtype), N, C)

@@ -2,9 +2,9 @@
 ragged key counts.
 
 ``attention_plan`` is a pure function of (dtype, B, Sq, Sk, H, D): which body
-of ``csrc/flash_attention.cu`` a launch runs (``wgmma``, ``mma.sync``,
+of ``csrc/flash_attention.cu`` a launch runs (``wgmma``, ``wgmma.d512``,
 ``fma.tiled`` or ``fma``), with which tile, how many blocks, how much shared
-memory and, for the fp32 body at head dim 512, over how many blocks the keys
+memory and, for the bodies at head dim 512, over how many blocks the keys
 are split. The kernel itself runs only on the GPU; what surrounds it is
 checked here, with the plain version of the split-key merge.
 """
@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from elasticdiffusion_tpu.kernels import flash_attention as jfa
 from elasticdiffusion_tpu.kernels.attention import (
     reference_attention as j_reference_attention)
 
@@ -24,8 +25,8 @@ from elasticdiffusion_tpu_torch.kernels import attention as tattn
 from elasticdiffusion_tpu_torch.kernels import build
 from elasticdiffusion_tpu_torch.kernels.flash_attention import (
     F512_SMEM, HEAD_DIMS, MAX_KEY_SPLITS, SM_COUNT, SMEM_PER_BLOCK,
-    WGMMA_HEAD_DIMS, attention_plan, flash_attention, key_split_ranges,
-    key_splits, reference_attention, split_key_attention)
+    W512_SMEM, WGMMA_HEAD_DIMS, attention_plan, flash_attention,
+    key_split_ranges, key_splits, reference_attention, split_key_attention)
 from torch_port_common import max_abs, t2n
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -34,7 +35,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 def _body(dtype, D):
     if dtype == F32:
         return "fma.tiled" if D == 512 else "fma"
-    return "wgmma" if D in WGMMA_HEAD_DIMS else "mma.sync"
+    return "wgmma" if D in WGMMA_HEAD_DIMS else "wgmma.d512"
 
 
 def _main_path_shapes():
@@ -77,6 +78,11 @@ def test_plan_of_every_main_path_shape(dtype, B, Sq, Sk, H, D):
         assert plan.bn % 8 == 0 and (plan.bn * 128) % 1024 == 0
     elif plan.body == "fma.tiled":
         assert (plan.code, plan.bm, plan.bn, plan.threads) == (4, 64, 64, 256)
+        assert 1 <= plan.splits <= math.ceil(Sk / plan.bn)
+    elif plan.body == "wgmma.d512":
+        # two consumer warpgroups (one half of the head dim each) and a
+        # producer; 32-key tiles
+        assert (plan.code, plan.bm, plan.bn, plan.threads) == (5, 64, 32, 384)
         assert 1 <= plan.splits <= math.ceil(Sk / plan.bn)
     else:
         assert plan.code == 0 and plan.splits == 1
@@ -218,3 +224,75 @@ def test_split_key_merge_matches_jax_reference(split_case, splits):
     assert max_abs(t2n(got), want) < 1e-5
     ref = reference_attention(*(torch.from_numpy(a) for a in (q, k, v)))
     assert max_abs(t2n(got), t2n(ref)) < 1e-5
+
+
+# (Sq = Sk, key splits) of the bf16 head-dim-512 attentions of the paths:
+# the VAE mid blocks of the SD 1.x / 2.x decodes at 512x768 and 768x768 px
+BF16_PATH_SPLITS = ((6144, 4), (9216, 6))
+
+
+@pytest.mark.parametrize("S,splits", BF16_PATH_SPLITS)
+def test_bf16_d512_plan_at_path_shapes(S, splits):
+    plan = attention_plan(BF16, 1, S, S, 1, 512)
+    assert plan.body == "wgmma.d512" and plan.code == 5
+    # two consumer warpgroups and one producer warpgroup
+    assert plan.threads == 384 and (plan.bm, plan.bn, plan.stages) == (64, 32, 2)
+    row_blocks = math.ceil(S / 64)
+    assert row_blocks < SM_COUNT or S == 9216  # why the keys are split
+    assert plan.splits == splits == key_splits(row_blocks, math.ceil(S / 64))
+    assert plan.blocks == row_blocks * plan.splits
+    # Q, two K and two V slots of 32 keys, the S exchange, slack, barriers
+    assert plan.smem_bytes == W512_SMEM == (
+        1024 + 64 * 512 * 2 + 4 * 32 * 512 * 2 + 2 * 2 * 16 * 128 * 4 + 128)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+
+
+def test_bf16_d512_plan_names_an_instantiation_of_the_source():
+    """Plan 5 is the wgmma body at head dim 512 in the C entry, with the
+    shared memory and threads of its configuration; no plan is mma.sync."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert re.search(r"if \(plan == 5\) \{[^}]*launch_w512\(", src)
+    cfg = re.search(r"struct W512Cfg \{(.*?)\n\};", src, re.S).group(1)
+    assert "D = 512, BM = 64, BN = 32, THREADS = 384, SLOTS = 2" in cfg
+    assert "flash_wgmma_bf16_d512" in src
+    assert "mma.sync" not in src and "flash_mma_bf16" not in src
+    plans = {attention_plan(dt, B, S, S, H, D).body
+             for dt in (BF16, F32) for D in HEAD_DIMS
+             for B, S, H in ((1, 6144, 1), (8, 1024, 8), (2, 77, 2))}
+    assert "mma.sync" not in plans
+    assert plans == {"wgmma", "wgmma.d512", "fma", "fma.tiled"}
+
+
+@pytest.fixture(scope="module")
+def bf16_split_case():
+    """bf16 operands at head dim 512, 256 keys (8 tiles of 32), and the
+    JAX package's reference attention and bf16 streaming kernel (interpret
+    mode, 128-key blocks) on them."""
+    rng = np.random.default_rng(1512)
+    q, k, v = (rng.standard_normal((1, 256, 1, 512)).astype(np.float32)
+               for _ in range(3))
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    ref = np.asarray(j_reference_attention(jq, jk, jv).astype(jnp.float32))
+    kernel = np.asarray(jfa.flash_attention(
+        jq, jk, jv, block_q=128, block_k=128, interpret=True,
+        oneshot="off").astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    return (tq, tk, tv), ref, kernel
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_bf16_split_key_merge_matches_jax(bf16_split_case, splits):
+    """The plain version of the bf16 body's split-key path (P rounded to
+    bf16 inside each split, l from the unrounded P, fp32 merge) against the
+    JAX reference and the JAX bf16 streaming kernel."""
+    (tq, tk, tv), ref, kernel = bf16_split_case
+    got = split_key_attention(tq, tk, tv, splits, bn=32)
+    assert got.dtype == BF16 and tuple(got.shape) == ref.shape
+    got = t2n(got.float())
+    # P is rounded to bf16 against other maxima on each side (per split
+    # here, per 128-key block of the running max in the JAX kernel, the
+    # global max in the reference), and each output is rounded to bf16: two
+    # bf16 ulps at the largest output magnitude
+    tol = 2 * _bf16_ulp(np.abs(ref).max())
+    assert max_abs(got, ref) <= tol
+    assert max_abs(got, kernel) <= tol
