@@ -14,9 +14,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
   device    the card (nvidia-smi name and power limit), torch and CUDA
   build     nvcc builds every kernel from the sources in this checkout
   kernels   every kernel against its plain PyTorch version at every shape
-            the main paths give it, with times from CUDA events and replayed
-            from a CUDA graph (`device_ms`, the kernel without the host that
-            launches it), with the plan each shape ran (body, tile, splits)
+            the main paths give it (the norms with the weight dtype and eps
+            of the modules that launch them), with times from CUDA events and
+            replayed from a CUDA graph (`device_ms`, the kernel without the
+            host that launches it), with the plan each shape ran (body, tile,
+            splits; for GroupNorm the clusters the card holds), and the
+            GroupNorm bodies and chunk widths no path reaches (`edge`)
   model     per bundle, one full-width batch-8 UNet forward and one VAE
             decode with the kernels against the same modules with the plain
             versions; for the bundles that run the conv kernel, the forward
@@ -27,7 +30,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
             default conv_impl='cudnn'; launch counts are set to 0 just before
             each path and read just after; `unchecked_launches` lists the
             shapes a path launched that the kernels phase did not check, and
-            any shape among them fails the run
+            any shape among them fails the run. Then the path's first request
+            runs again with every plain version and cuDNN convs, same seed:
+            its final latents are held to the kernels' (`end_to_end`, rel L2
+            within E2E_TOL_REL_L2), and the random draws of the two runs must
+            be the same
+
+Every bundle's biases and norm weights are moved off their seeded init
+(`perturb_bundle`) as soon as it loads, so that a bias or norm parameter
+wired to the wrong place shows in the model and end-to-end checks.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the main paths, error, time and bound. A
@@ -280,10 +291,12 @@ def attention_host_us(gen):
 
 
 def layernorm_cases():
-    """(tag, dtype, N, C) of every LayerNorm the paths launch: the UNet
-    transformer blocks (tokens x width, times the batches the requests give:
-    8, 2, 3 and 9 as for attention; SD 1.5's 512x768 request has 3 views)
-    and the text encoders' 77 tokens. Every case is timed in full."""
+    """(tag, dtype, weight dtype, eps, N, C) of every LayerNorm the paths
+    launch: the UNet transformer blocks (tokens x width, times the batches
+    the requests give: 8, 2, 3 and 9 as for attention; SD 1.5's 512x768
+    request has 3 views) and the text encoders' 77 tokens. Both keep their
+    weights in the bf16 parameter dtype and use eps 1e-5 (LayerNorm32's
+    default, CLIPTextConfig.layer_norm_eps). Every case is timed in full."""
     bf = torch.bfloat16
     unet = (("sdxl", ((4096, 640), (1024, 1280)), (8, 2, 3, 9)),
             ("sd15", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
@@ -296,9 +309,9 @@ def layernorm_cases():
             for B in batches:
                 if (B * S, C) not in seen:
                     seen.add((B * S, C))
-                    cases.append((tag, bf, B * S, C))
+                    cases.append((tag, bf, bf, 1e-5, B * S, C))
     for C in (768, 1280, 1024):  # CLIP L (SD 1.x, SDXL), bigG, OpenCLIP H
-        cases.append(("clip", bf, 77, C))
+        cases.append(("clip", bf, bf, 1e-5, 77, C))
     return cases
 
 
@@ -306,31 +319,33 @@ def run_layernorm(gen, results):
     import torch.nn.functional as F
     from elasticdiffusion_tpu_torch.kernels.layernorm import (
         fused_layer_norm, layernorm_plan, reference_layer_norm)
-    for tag, dtype, N, C in layernorm_cases():
+    for tag, dtype, w_dtype, eps, N, C in layernorm_cases():
         name = f"fused_layer_norm/{tag}_{str(dtype)[6:]}_{N}x{C}"
         if not wanted(name):
             continue
         x = (torch.randn(N, C, generator=gen, device="cuda") * 1.5 + 0.3).to(dtype)
-        w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
-        b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
-        out = fused_layer_norm(x, w, b, 1e-5)
+        w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(w_dtype)
+        b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(w_dtype)
+        out = fused_layer_norm(x, w, b, eps)
         torch.cuda.synchronize()
-        ref = reference_layer_norm(x, w, b, 1e-5)
+        ref = reference_layer_norm(x, w, b, eps)
         max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
-        kernel = lambda: fused_layer_norm(x, w, b, 1e-5)
-        lib = lambda: F.layer_norm(x, (C,), w, b, 1e-5)
-        nbytes = (2 * x.numel() + 2 * C) * x.element_size()
+        kernel = lambda: fused_layer_norm(x, w, b, eps)
+        lw, lb = w.to(dtype), b.to(dtype)  # the library takes x's dtype
+        lib = lambda: F.layer_norm(x, (C,), lw, lb, eps)
+        nbytes = 2 * x.numel() * x.element_size() + 2 * C * w.element_size()
         b_ms, b_by = bound(nbytes, 8.0 * N * C, torch.float32)
         results.append({
             "name": name, "kernel": "fused_layer_norm", "route": "cuda",
             "source": "elasticdiffusion_tpu_torch/kernels/csrc/layernorm.cu",
             "replaces": "elasticdiffusion_tpu/kernels/layernorm.py:66",
-            "log_key": ("fused_layer_norm", str(dtype), N, C),
+            "log_key": ("fused_layer_norm", str(dtype), str(w_dtype), eps, N, C),
+            "weight_dtype": str(w_dtype), "eps": eps,
             "body": layernorm_plan(C, dtype).body,
             "max_abs_err": max_abs, "rel_l2_err": rel_l2,
             "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
             "bound_ms": b_ms, "bound_by": b_by, "library": "F.layer_norm",
-            **norm_times(kernel, lambda: reference_layer_norm(x, w, b, 1e-5),
+            **norm_times(kernel, lambda: reference_layer_norm(x, w, b, eps),
                          lib, True)})
 
 
@@ -351,11 +366,14 @@ def norm_times(kernel, plain, lib, full: bool) -> dict:
 
 
 def groupnorm_cases():
-    """(tag, dtype, B, H, W, C, silu, full) of every GroupNorm the paths
-    launch: the UNet's ResNet and Transformer2D norms at the batches the
-    requests give, the VAE decoders (bf16 for SD 1.x / 2.x, fp32 for the
-    SDXL force_upcast decode) and the fp32 background-strip encodes. `full`
-    (timed in full): batch 8, and every VAE shape."""
+    """(tag, dtype, weight dtype, eps, B, H, W, C, silu, full) of every
+    GroupNorm the paths launch, with the weight dtype and eps of the module
+    that launches it: the UNet's ResNet norms (SiLU, eps 1e-5) and
+    Transformer2D norms (no SiLU, eps 1e-6), bf16 weights, at the batches
+    the requests give; the VAE decoders (bf16 activations with the fp32 norm
+    weights of the compute copy for SD 1.x / 2.x, fp32 for the SDXL
+    force_upcast decode) and the fp32 background-strip encodes, all eps 1e-6.
+    `full` (timed in full): batch 8, and every VAE shape."""
     bf, f32 = torch.bfloat16, torch.float32
     T, F_ = True, False
     sdxl = ((128, 320, T), (128, 640, T), (128, 960, T), (64, 320, T),
@@ -369,17 +387,19 @@ def groupnorm_cases():
           (8, 1280, T), (8, 2560, T))
     cases, seen = [], set()
 
-    def add(tag, dtype, B, H, W, C, silu):
-        if (dtype, B, H, W, C, silu) not in seen:
-            seen.add((dtype, B, H, W, C, silu))
-            cases.append((tag, dtype, B, H, W, C, silu, B == 1 or B == 8))
+    def add(tag, dtype, w_dtype, eps, B, H, W, C, silu):
+        key = (dtype, w_dtype, eps, B, H, W, C, silu)
+        if key not in seen:
+            seen.add(key)
+            cases.append((tag, dtype, w_dtype, eps, B, H, W, C, silu,
+                          B == 1 or B == 8))
 
     for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9)),
                                  ("sd15", sd, (8, 2, 3)),
                                  ("sd21", sd, (8, 2, 3, 9))):
         for S, C, silu in shapes:
             for B in batches:
-                add(tag, bf, B, S, S, C, silu)
+                add(tag, bf, bf, 1e-5 if silu else 1e-6, B, S, S, C, silu)
     # decoders at latent (h, w): mid block (and its attention's norm), the
     # four up blocks, norm_out. SD 1.x / 2.x bf16 at 512x768 and 768x768
     # px; SDXL fp32 at 1024x1536 and 1536x1536 px
@@ -389,53 +409,94 @@ def groupnorm_cases():
             for k, C, silu in ((1, 512, F_), (1, 512, T), (2, 512, T),
                                (4, 512, T), (4, 256, T), (8, 256, T),
                                (8, 128, T)):
-                add("vae_decode", dtype, 1, k * h, k * w, C, silu)
+                add("vae_decode", dtype, f32, 1e-6, 1, k * h, k * w, C, silu)
     # fp32 encoders of the background strips (image rows x width): SD 1.x /
     # 2.x 88x512, SDXL 168x1024 and 176x1024
     for H, W in ((88, 512), (168, 1024), (176, 1024)):
         for k, C, silu in ((1, 128, T), (2, 128, T), (2, 256, T), (4, 256, T),
                            (4, 512, T), (8, 512, F_), (8, 512, T)):
-            add("vae_encode", f32, 1, H // k, W // k, C, silu)
+            add("vae_encode", f32, f32, 1e-6, 1, H // k, W // k, C, silu)
     return cases
+
+
+def groupnorm_edge_cases():
+    """(tag, dtype, weight dtype, eps, B, H, W, C, groups, silu, offset) of
+    the bodies and spans no path shape reaches: a cluster over 144-byte
+    spans (whole 16-byte chunks, not whole sectors), two passes over rows of
+    1024 16-byte chunks, over 60-byte rows and over an input one element
+    off 16-byte alignment (`offset`). Timed briefly."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [("edge", bf, f32, 1e-6, 2, 12, 20, 72, 8, True, 0),
+            ("edge", bf, bf, 1e-5, 1, 96, 96, 8192, 32, True, 0),
+            ("edge", bf, f32, 1e-6, 2, 24, 24, 30, 1, True, 0),
+            ("edge", bf, bf, 1e-5, 2, 64, 64, 320, 32, True, 1)]
+
+
+def plan_fields(plan) -> dict:
+    return {k: v for k, v in plan._asdict().items() if k not in ("body", "code")}
 
 
 def run_groupnorm(gen, results):
     import torch.nn.functional as F
     from elasticdiffusion_tpu_torch.kernels.groupnorm import (
-        fused_group_norm, reference_group_norm)
-    for tag, dtype, B, H, W, C, silu, full in groupnorm_cases():
+        _align, fused_group_norm, groupnorm_plan, max_active_clusters,
+        reference_group_norm)
+    clusters = {}  # (dtype, cluster, smem) -> clusters the card holds
+    cases = [c[:8] + (32,) + c[8:9] + (0, c[9]) for c in groupnorm_cases()]
+    cases += [c + (False,) for c in groupnorm_edge_cases()]
+    for tag, dtype, w_dtype, eps, B, H, W, C, G, silu, offset, full in cases:
         name = (f"fused_group_norm/{tag}_{str(dtype)[6:]}_{B}x{H}x{W}x{C}"
-                + ("_silu" if silu else ""))
+                + (f"_g{G}" if G != 32 else "") + ("_silu" if silu else "")
+                + (f"_off{offset}" if offset else ""))
         if not wanted(name):
             continue
-        x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 1.5
-             + 0.3).to(dtype)
-        w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
-        b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+        x = torch.empty(B * H * W * C + offset, device="cuda", dtype=dtype)[
+            offset:].view(B, H, W, C)
+        x.copy_(torch.randn(B, H, W, C, generator=gen, device="cuda") * 1.5
+                + 0.3)
+        w = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(w_dtype)
+        b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(w_dtype)
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view for the library
-        out = fused_group_norm(x, w, b, 32, 1e-5, silu)
-        torch.cuda.synchronize()
-        ref = reference_group_norm(x, w, b, 32, 1e-5, silu)
+        plan = groupnorm_plan(dtype, B, H * W, C, G, w_dtype,
+                              _align(x.data_ptr()))
+        extra = {}
+        if plan.body == "cluster":
+            key = (dtype, plan.cluster, plan.smem_bytes)
+            if key not in clusters:
+                clusters[key] = max_active_clusters(plan, dtype)
+            extra["max_active_clusters"] = clusters[key]
+            if clusters[key] < 1:
+                fail(f"{name}: the card cannot hold one cluster of {plan}")
+        try:
+            out = fused_group_norm(x, w, b, G, eps, silu)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            fail(f"{name} ({plan}): {e}")
+        ref = reference_group_norm(x, w, b, G, eps, silu)
         max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
         del out, ref
+        lw, lb = w.to(dtype), b.to(dtype)  # the library takes x's dtype
         if silu:
-            lib = lambda: F.silu(F.group_norm(x_nchw, 32, w, b, 1e-5))
+            lib = lambda: F.silu(F.group_norm(x_nchw, G, lw, lb, eps))
         else:
-            lib = lambda: F.group_norm(x_nchw, 32, w, b, 1e-5)
-        nbytes = (2 * x.numel() + 2 * C) * x.element_size()
+            lib = lambda: F.group_norm(x_nchw, G, lw, lb, eps)
+        nbytes = 2 * x.numel() * x.element_size() + 2 * C * w.element_size()
         b_ms, b_by = bound(nbytes, 8.0 * x.numel(), torch.float32)
         results.append({
             "name": name, "kernel": "fused_group_norm", "route": "cuda",
             "source": "elasticdiffusion_tpu_torch/kernels/csrc/groupnorm.cu",
             "replaces": "elasticdiffusion_tpu/kernels/groupnorm.py:94",
-            "log_key": ("fused_group_norm", str(dtype), B, H, W, C, silu),
+            "log_key": ("fused_group_norm", str(dtype), str(w_dtype), eps,
+                        B, H, W, C, silu),
+            "weight_dtype": str(w_dtype), "eps": eps,
+            "body": plan.body, "plan": {**plan_fields(plan), **extra},
             "max_abs_err": max_abs, "rel_l2_err": rel_l2,
             "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
             "bound_ms": b_ms, "bound_by": b_by,
             "library": "F.group_norm" + (" + F.silu" if silu else ""),
             **norm_times(
-                lambda: fused_group_norm(x, w, b, 32, 1e-5, silu),
-                lambda: reference_group_norm(x, w, b, 32, 1e-5, silu),
+                lambda: fused_group_norm(x, w, b, G, eps, silu),
+                lambda: reference_group_norm(x, w, b, G, eps, silu),
                 lib, full)})
         del x, x_nchw
         if nbytes > (256 << 20):  # the large fp32 decoder shapes
@@ -676,12 +737,113 @@ def gate_convs(unet):
                         (3, 3, m.in_channels, m.out_channels))]
 
 
+@torch.no_grad()
+def perturb_bundle(bundle, seed: int) -> int:
+    """Moves every bias and every norm weight of a freshly loaded bundle off
+    its seeded init (biases 0, norm weights 1) by 0.1 N(0, 1) from a seeded
+    generator, so that a bias or a norm parameter wired to the wrong place
+    changes the answer. The compute-dtype VAE copy takes the fp32 VAE's new
+    values. Returns the number of tensors moved."""
+    import torch.nn as nn
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    moved = 0
+    for model in (bundle.unet, bundle.vae_fp32, *bundle.text_models):
+        for m in model.modules():
+            params = [m.bias] if isinstance(getattr(m, "bias", None),
+                                            nn.Parameter) else []
+            if (isinstance(getattr(m, "weight", None), nn.Parameter)
+                    and params and not isinstance(
+                        m, (nn.Linear, nn.Conv2d, nn.Embedding))):
+                params.append(m.weight)  # a norm (seeded_init_'s rule)
+            for p in params:
+                p.add_((0.1 * torch.randn(p.shape, generator=gen,
+                                          device=p.device)).to(p.dtype))
+                moved += 1
+    if bundle.vae is not bundle.vae_fp32:
+        for a, b in zip(bundle.vae.parameters(), bundle.vae_fp32.parameters()):
+            a.copy_(b)
+    return moved
+
+
+class record_generators:
+    """Records every torch.Generator made while the block runs. Their states
+    after a request say whether two runs drew the same random numbers: the
+    same seeds and the same states after the run mean the same draws."""
+
+    def __enter__(self):
+        self.made, self.orig = [], torch.Generator
+
+        def make(*a, **k):
+            g = self.orig(*a, **k)
+            self.made.append(g)
+            return g
+
+        torch.Generator = make
+        return self
+
+    def __exit__(self, *exc):
+        torch.Generator = self.orig
+
+    def states(self):
+        return [g.get_state() for g in self.made]
+
+
+# End to end on the card: the final latents of a path's smallest request with
+# the kernels (the path's conv_impl) against the same request with every
+# plain version and cuDNN convs, same seed, perturbed norms and biases.
+E2E_TOL_REL_L2 = 5e-2
+E2E_TOL_WHY = ("bf16 activations through 4 steps of 2(rs+1)+V UNet forwards: "
+               "the kernels and the plain versions round and sum at different "
+               "places in every norm, attention and conv; the first runs on "
+               "an H100 measured 0.026-0.035 on the three paths, and one "
+               "batch-8 forward differs by 0.016-0.018 (the model phase's "
+               "bar is 5e-2 too)")
+
+
+def generate(pipe, path, req, steps: int, resampling: int, seed: int):
+    """One request of a path from a seed; (images, info, generator states)."""
+    pipe.seed_everything(seed)
+    with record_generators() as rec:
+        imgs, info = pipe.generate_image(
+            "a photo of a lighthouse on a cliff at dusk", negative_prompts="",
+            num_inference_steps=steps, resampling_steps=resampling,
+            repaint_sampling=True, return_arrays=True, **req)
+    torch.cuda.synchronize()
+    return imgs, info, rec.states()
+
+
+def end_to_end(pipe, path, steps: int, resampling: int, kernel_run) -> dict:
+    """The path's smallest request again with every kernel off, against
+    `kernel_run` = (info, generator states) of the same request and seed
+    with the kernels."""
+    bundle = pipe.bundle
+    bundle.set_use_kernels("off")
+    bundle.set_conv_impl("cudnn")
+    try:
+        _, info, states = generate(pipe, path, path["requests"][0], steps,
+                                   resampling, 0)
+    finally:
+        bundle.set_use_kernels("auto")
+        bundle.set_conv_impl(path["conv_impl"])
+    k_info, k_states = kernel_run
+    same_draws = len(states) == len(k_states) and all(
+        torch.equal(a, b) for a, b in zip(states, k_states))
+    a = torch.as_tensor(k_info["latent"]).float()
+    b = torch.as_tensor(info["latent"]).float()
+    return {"request": path["requests"][0], "latent_shape": list(a.shape),
+            "rel_l2": rel_l2(a, b), "max_abs": (a - b).abs().max().item(),
+            "finite": bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+            "tolerance_rel_l2": E2E_TOL_REL_L2, "tolerance_why": E2E_TOL_WHY,
+            "generators": len(states), "same_random_draws": same_draws}
+
+
 def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     """One main path. Every launch count is set to 0 just before and read
     just after; comparison launches of the other phases do not count.
     `checked` is the set of launch-log keys the kernels phase held against a
     plain version (None when that phase did not run): a shape launched here
-    and checked nowhere fails the run."""
+    and checked nowhere fails the run. After the counts are read, the first
+    request runs again with the plain versions (`end_to_end`)."""
     import elasticdiffusion_tpu_torch.kernels as kernels
     wrappers, plain = kernel_counts(), plain_cuda_counts()
     conv_on = path["conv_impl"] == "kernel"
@@ -689,6 +851,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     for w in wrappers.values():
         w.launches = 0
     wrappers["conv3x3"].copies = 0
+    wrappers["fused_group_norm"].copies = 0
     for d in plain.values():
         d.plain_cuda_calls = 0
     for m in convs:
@@ -698,18 +861,15 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         lambda *a: unet_calls.__setitem__(0, unet_calls[0] + 1))
     kernels.launch_log = collections.Counter()
 
-    answers = []
+    answers, first = [], None
     for i, req in enumerate(path["requests"]):
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.reset_peak_memory_stats()
-        pipe.seed_everything(i)
         t0 = time.time()
-        imgs, info = pipe.generate_image(
-            "a photo of a lighthouse on a cliff at dusk", negative_prompts="",
-            num_inference_steps=steps, resampling_steps=resampling,
-            repaint_sampling=True, return_arrays=True, **req)
-        torch.cuda.synchronize()
+        imgs, info, states = generate(pipe, path, req, steps, resampling, i)
         wall = time.time() - t0
+        if i == 0:
+            first = (info, states)
         launched = {n: w.launches - before[n] for n, w in wrappers.items()}
         ok_shape = tuple(imgs.shape) == (1, 3, req["height"], req["width"])
         finite = bool(torch.isfinite(torch.as_tensor(imgs)).all())
@@ -736,6 +896,8 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     plain_calls = {n: d.plain_cuda_calls for n, d in plain.items()}
     totals = {n: w.launches for n, w in wrappers.items()}
     cudnn_in_gate = sum(m.library_cuda_calls for m in convs)
+    gn_copies = wrappers["fused_group_norm"].copies
+    e2e = end_to_end(pipe, path, steps, resampling, first)
     expected_conv = len(convs) * unet_calls[0] if conv_on else 0
     unchecked = {} if checked is None else {
         "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
@@ -749,12 +911,17 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "conv3x3_expected_launches": expected_conv,
           "conv3x3_operand_copies": wrappers["conv3x3"].copies,
           "cudnn_calls_in_gate": cudnn_in_gate,
-          "unchecked_launches": unchecked})
+          "group_norm_operand_copies": gn_copies,
+          "unchecked_launches": unchecked, "end_to_end": e2e})
     if unchecked:
         fail(f"{path['name']}: kernels launched at shapes that no kernel case "
              f"checks: {sorted(unchecked)}")
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
+    if not (e2e["finite"] and e2e["same_random_draws"]
+            and e2e["rel_l2"] <= E2E_TOL_REL_L2):
+        fail(f"{path['name']}: kernels against plain versions end to end: "
+             f"{e2e}")
     if conv_on and cudnn_in_gate:
         fail(f"{path['name']}: nn.Conv2d.forward ran {cudnn_in_gate} times "
              f"inside the conv kernel's gate under conv_impl='kernel'")
@@ -833,10 +1000,12 @@ def main(argv=None) -> int:
             bundle = load_bundle(
                 path["sd_version"], seed=opt.seed, device="cuda",
                 runtime=RuntimeConfig(conv_impl=path["conv_impl"]))
+            moved = perturb_bundle(bundle, opt.seed + 1)
             torch.cuda.synchronize()
             emit({"phase": "load", "path": path["name"],
                   "sd_version": path["sd_version"], "seconds": time.time() - t0,
-                  "memory_allocated": torch.cuda.memory_allocated()})
+                  "memory_allocated": torch.cuda.memory_allocated(),
+                  "perturbed_tensors": moved})
             if "model" in phases:
                 with torch.no_grad():
                     phase_model(bundle, path)

@@ -1,30 +1,222 @@
-"""GroupNorm(+SiLU) kernel wrapper: ``fused_group_norm`` and
-``reference_group_norm``.
+"""GroupNorm(+SiLU) kernel wrapper: ``fused_group_norm``, its plan and its
+plain versions.
 
 Replaces the Pallas TPU kernels ``fused_group_norm`` / ``_stats_kernel`` /
 ``_apply_kernel`` of ``elasticdiffusion_tpu/kernels/groupnorm.py`` with
-``csrc/groupnorm.cu``: partial per-channel sums over row chunks, a small
-finalize launch for the group moments, and an elementwise apply with
-optional SiLU. No atomics, so results repeat from run to run.
+``csrc/groupnorm.cu``. Three bodies, chosen by ``groupnorm_plan``:
 
-Bound on this card: bytes (the activation read once and written once); the
-kernel reads it twice, see the source.
+  'cluster'   one launch, one read and one write. A cluster of 1-16 blocks
+              owns one (image, span of groups) slab at a time; each block
+              stages its rows of the slab in shared memory, the blocks add
+              their group sums through distributed shared memory in rank
+              order, and each normalises its rows from shared memory. The
+              grid is persistent. The small and middle UNet shapes take it.
+  'grid'      one launch: B x K blocks, one an SM, all resident at once
+              (a cooperative launch). A block owns whole rows of one image,
+              keeps as many of them as fit in shared memory, streams the
+              others through registers for the sums, meets the image's other
+              blocks at a counter, and normalises: the streamed rows read
+              again (the most recent from L2), then the resident ones. Where
+              every row stays resident it reads once. The large UNet shapes,
+              the VAE decoders and the strip encodes take it.
+  'two_pass'  two launches, for what neither takes (rows of more than 512
+              chunks, unaligned or ragged rows too large for a cluster):
+              per-channel partial sums over row chunks, the last block of an
+              image turning them into scale and shift, then the elementwise
+              apply in reverse row order, so that the rows read last are read
+              again first, from L2.
+
+No sum is taken with atomics, so results repeat from run to run.
+``split_group_norm`` is the plain version of the bodies' order of sums.
+
+Bound on this card: bytes (the activation read once and written once).
 
 Input ``(B, H, W, C)``, the NHWC view that a ``channels_last`` NCHW tensor
 gives for free. fp32 statistics with ``var = E[x^2] - E[x]^2``, output in the
-input dtype.
+input dtype, weight and bias in fp32 or bf16.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from . import build, note_launch, wants_kernel
 from .layernorm import _DTYPES, _param_flag
 
-_TARGET_BLOCKS = 1024  # stats blocks to aim for: a few waves of 132 SMs
+# mirrors csrc/groupnorm.cu
+THREADS = 256
+SMEM_MAX = 232448          # dynamic shared memory a block may have (227 KB)
+SMEM_SM = 233472           # shared memory of an SM (228 KB)
+CLUSTERS = (1, 2, 4, 8, 16)  # 16 is not portable: the card is asked first
+# Clusters the H100 holds at once, for each block an SM the cluster's shared
+# memory leaves room for (cudaOccupancyMaxActiveClusters, as chip_smoke.py
+# prints it per case; at most 3 blocks an SM counted for clusters of 4-16)
+HELD = {1: 132, 2: 66, 4: 30.5, 8: 15, 16: 7}
+BOX_ROWS = 64              # rows a TMA box (16-byte chunks move by TMA)
+GRID_THREADS = 512         # threads a block of the grid body
+SMS = 132                  # SMs of the H100: blocks the grid body may hold
+STATS_BLOCKS = 264         # two-pass statistics blocks to aim for: 2 an SM
+UNROLL = 8                 # rows a thread has in flight in the two-pass body
+APPLY_BYTES = 32 * 1024    # bytes a two-pass apply block moves
+
+
+class GroupNormPlan(NamedTuple):
+    """What one call runs."""
+    body: str          # 'cluster' or 'two_pass'
+    code: int          # the C entry's ``plan`` argument: 1 cluster, 2 two-pass,
+                       # 3 grid
+    vec: int           # bytes a thread moves at a time (16; two-pass also
+                       # the element size, for rows of other widths)
+    cluster: int       # blocks a cluster (1 for the other bodies)
+    span: int          # channels a slab covers: whole groups (others: C)
+    rows_per_cta: int  # rows of the slab a block holds; grid: rows a block
+                       # owns; two-pass: rows a statistics block sums
+    smem_bytes: int    # dynamic shared memory a block
+    blocks: int        # cluster: slabs x cluster size (the launch holds at
+                       # most the clusters the card fits at once); grid: the
+                       # blocks; two-pass: blocks of the statistics launch
+
+
+def _cluster_smem(rows: int, span: int, elt: int, groups: int) -> int:
+    """Shared memory of one cluster-body block: 128 bytes of barrier, its
+    rows of the slab, then the fp32 reduction scratch (per-thread sums,
+    partition sums, the block's group sums by parity, the cluster's group
+    sums)."""
+    span_bytes = span * elt
+    nch, ncol = span_bytes // 16, 2 * span
+    data = -(-rows * span_bytes // 128) * 128
+    return 128 + data + 4 * ((THREADS // nch) * ncol
+                             + max(1, THREADS // ncol) * ncol + 6 * groups)
+
+
+def _cluster_seconds(units: int, c: int, data: int, smem: int) -> float:
+    """Modelled time of a cluster-body launch: the persistent grid walks the
+    slabs in rounds of as many clusters as the card holds; a round moves
+    each block's rows in and out at up to 25 GB/s a block and 2.6 TB/s in
+    all, and pays 3.5 us + 0.7 us x log2(cluster) of reductions and cluster
+    barrier. Fitted to H100 device times of each cluster size forced at the
+    main path shapes; it only ranks cluster sizes."""
+    per_sm = min(8, SMEM_SM // (smem + 1024))
+    held = max(1, int(HELD[c] * (per_sm if c <= 2 else min(per_sm, 3))))
+    t = 0.0
+    while units > 0:
+        blocks = min(held, units) * c
+        t += (2 * blocks * data / min(2.6e12, blocks * 25e9)
+              + 3.5e-6 + 0.7e-6 * math.log2(c))
+        units -= held
+    return t
+
+
+def _grid_plan(dtype: torch.dtype, B: int, S: int, C: int, G: int):
+    """(plan, rows it keeps resident) of the grid body, or None where the
+    grid body cannot run: K = SMS // B blocks an image (one an SM, all
+    resident at once), each with as many of its rows in shared memory as
+    fit beside the reduction scratch."""
+    elt = 2 if dtype == torch.bfloat16 else 4
+    cv = C * elt // 16
+    if C * elt % 16 or cv > GRID_THREADS or B > SMS:
+        return None
+    K = max(1, min(SMS // B, S // BOX_ROWS))
+    rows = -(-S // K)
+    scratch = 4 * ((GRID_THREADS // cv) * 2 * C + 2 * C + 2 * G) + 16
+    smem = min(SMEM_MAX, scratch + rows * C * elt)
+    plan = GroupNormPlan("grid", 3, 16, 1, C, rows, smem, B * K)
+    return plan, min(rows, (smem - scratch) // (C * elt))
+
+
+def _two_pass_shape(C: int, elt: int, vec: int):
+    """(TX, TY, ZC): threads along the channel vectors, along the rows, and
+    blocks along C, of the two-pass kernels."""
+    cv = C * elt // vec
+    tx = min(cv, THREADS)
+    return tx, THREADS // tx, -(-cv // tx)
+
+
+def _cluster_plan(elt: int, B: int, S: int, C: int, G: int, align: int):
+    """The cluster body's plan, or None where no cluster holds a slab."""
+    gs = C // G
+    if align < 16:
+        return None
+    for width in (32, 16):
+        sg = next((n for n in range(1, G + 1)
+                   if G % n == 0 and n * gs * elt % width == 0), None)
+        if sg is None:
+            continue
+        span = sg * gs
+        if span > 256:  # a TMA box is at most 256 elements wide
+            continue
+        if width < 32 and span * elt < 64:
+            continue  # most of its sectors split: two passes move more
+        units = B * (G // sg)
+        best = None
+        for c in CLUSTERS:
+            if c > S:
+                break
+            rows = -(-S // c)
+            rows = -(-rows // BOX_ROWS) * BOX_ROWS  # whole TMA boxes
+            smem = _cluster_smem(rows, span, elt, sg)
+            if smem > SMEM_MAX:
+                continue
+            t = _cluster_seconds(units, c, rows * span * elt, smem)
+            if best is None or t < best[0]:
+                best = (t, c, rows, smem)
+        if best is not None:
+            _, c, rows, smem = best
+            return GroupNormPlan("cluster", 1, 16, c, span, rows, smem,
+                                 units * c)
+    return None
+
+
+@functools.lru_cache(maxsize=1024)
+def groupnorm_plan(dtype: torch.dtype, B: int, S: int, C: int, G: int,
+                   w_dtype: torch.dtype = None, align: int = 16) -> GroupNormPlan:
+    """The body of ``fused_group_norm`` for B images of S = H*W rows of C
+    channels in G groups; mirrors csrc/groupnorm.cu. ``w_dtype``: the dtype
+    of weight and bias (fp32 or bf16; every body takes both). ``align``: the
+    largest power of two up to 16 that divides the addresses of x and y.
+
+    The cluster body takes the first span width that fits a cluster of at
+    most 16 blocks: spans a whole number of 32-byte sectors wide (a sector
+    split between two blocks halves the rate at which both move it), then
+    of 16-byte chunks if such a span is at least 64 bytes wide; both are
+    loaded by TMA in boxes of BOX_ROWS rows. Of the cluster sizes that fit
+    it takes the one ``_cluster_seconds`` rates fastest.
+
+    The grid body (whole rows, so no sector is split) takes its place where
+    a cluster needs 16 blocks or none fits, and where at least half of a
+    block's rows stay resident, at least 64 blocks run and a row is at most
+    256 chunks (so that two threads or more share a chunk column): on the
+    H100 it was the faster there, and the cluster body elsewhere. Shapes
+    neither takes run two passes."""
+    if dtype not in _DTYPES:
+        raise NotImplementedError(f"fused_group_norm has no kernel for {dtype}")
+    if w_dtype is not None and w_dtype not in _DTYPES:
+        raise TypeError(f"weight/bias must be fp32 or bf16, got {w_dtype}")
+    if C % G:
+        raise ValueError(f"{C} channels do not split into {G} groups")
+    elt = 2 if dtype == torch.bfloat16 else 4
+    cluster = _cluster_plan(elt, B, S, C, G, align)
+    grid = _grid_plan(dtype, B, S, C, G) if align >= 16 else None
+    if grid is not None:
+        plan, resident = grid
+        if (cluster is None or cluster.cluster == 16
+                or (C * elt <= 256 * 16 and plan.blocks >= 64
+                    and 2 * resident >= plan.rows_per_cta)):
+            return plan
+    if cluster is not None:
+        return cluster
+    vec = 16 if (C * elt % 16 == 0 and align >= 16) else elt
+    tx, ty, zc = _two_pass_shape(C, elt, vec)
+    nchunks = max(1, min(-(-STATS_BLOCKS // (B * zc)), -(-S // (ty * UNROLL))))
+    rows = -(-S // nchunks)
+    smem = 4 * max(ty * tx * 2 * (vec // elt), 2 * C + 2 * G)
+    return GroupNormPlan("two_pass", 2, vec, 1, C, rows, smem,
+                         -(-S // rows) * B * zc)
 
 
 def reference_group_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -43,6 +235,67 @@ def reference_group_norm(x: torch.Tensor, weight: torch.Tensor,
     return out.to(x.dtype)
 
 
+def split_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     groups: int, eps: float = 1e-5, silu: bool = False,
+                     plan: GroupNormPlan = None) -> torch.Tensor:
+    """Plain version of the kernel's order of sums, in fp32. Each block sums
+    ``plan.rows_per_cta`` rows per channel. The cluster body adds a block's
+    channel sums into group sums and then the blocks' group sums in rank
+    order; the grid and two-pass bodies add the blocks' channel sums in
+    block order and then the channels of each group. Then
+    ``scale = w * rsqrt(var + eps)``, ``shift = b - mean * scale``,
+    ``x * scale + shift`` (and SiLU)."""
+    B, H, W, C = x.shape
+    S = H * W
+    if plan is None:
+        plan = groupnorm_plan(x.dtype, B, S, C, groups, weight.dtype)
+    gs = C // groups
+    xf = x.float().reshape(B, S, C)
+    s = torch.zeros(B, groups if plan.body == "cluster" else C, device=x.device)
+    q = torch.zeros_like(s)
+    for r0 in range(0, S, plan.rows_per_cta):
+        part = xf[:, r0:r0 + plan.rows_per_cta]
+        ps, pq = part.sum(dim=1), (part * part).sum(dim=1)
+        if plan.body == "cluster":
+            ps, pq = (t.reshape(B, groups, gs).sum(-1) for t in (ps, pq))
+        s, q = s + ps, q + pq
+    if plan.body != "cluster":
+        s, q = (t.reshape(B, groups, gs).sum(-1) for t in (s, q))
+    cnt = float(S * gs)
+    mean = s / cnt
+    var = q / cnt - mean * mean
+    inv = torch.rsqrt(var + eps)
+    scale = weight.float() * inv.repeat_interleave(gs, dim=-1)
+    shift = bias.float() - mean.repeat_interleave(gs, dim=-1) * scale
+    out = xf * scale[:, None] + shift[:, None]
+    if silu:
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype).reshape(B, H, W, C)
+
+
+def _align(*ptrs: int) -> int:
+    a = 16
+    while a > 1 and any(p % a for p in ptrs):
+        a //= 2
+    return a
+
+
+_counters = {}  # device -> int32 zeros: blocks done (and gone), per image
+
+
+def _counter(device: torch.device, B: int) -> torch.Tensor:
+    """Per-image counts of the blocks that finished their sums (two-pass and
+    grid bodies) and of those past the meeting point (grid body). The last
+    block of an image sets its counts back to 0, so the buffer is zeroed
+    once a process. One buffer a device: launches must not overlap on two
+    streams (the port launches on one)."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < B:
+        buf = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
+
+
 def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      groups: int, eps: float = 1e-5,
                      silu: bool = False) -> torch.Tensor:
@@ -59,41 +312,67 @@ def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if C % groups:
         raise ValueError(f"{C} channels do not split into {groups} groups")
     w_bf16 = _param_flag(weight, bias, C)
-    x = x.contiguous()
+    if not x.is_contiguous():
+        fused_group_norm.copies += 1
+        x = x.contiguous()
     S = H * W
     y = torch.empty_like(x)
-    vec = 16 // x.element_size()
-    vectorized = int(C % vec == 0 and x.data_ptr() % 16 == 0
-                     and y.data_ptr() % 16 == 0)
-    cv = C // vec if vectorized else C
-    tx = min(cv, 256)
-    ty = 256 // tx
-    zc = -(-cv // tx)
-    nchunks = max(1, min(_TARGET_BLOCKS // (B * zc), -(-S // (4 * ty))))
-    partial = torch.empty((B, nchunks, 2, C), dtype=torch.float32,
-                          device=x.device)
-    scale_shift = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    plan = groupnorm_plan(x.dtype, B, S, C, groups, weight.dtype,
+                          _align(x.data_ptr(), y.data_ptr()))
+    if plan.body == "two_pass":
+        partial = torch.empty((B, -(-S // plan.rows_per_cta), 2, C),
+                              dtype=torch.float32, device=x.device)
+        scale_shift = torch.empty((2, B, C), dtype=torch.float32,
+                                  device=x.device)
+        scratch = (partial.data_ptr(), scale_shift.data_ptr(),
+                   _counter(x.device, B).data_ptr())
+    elif plan.body == "grid":
+        partial = torch.empty((plan.blocks, 2, C), dtype=torch.float32,
+                              device=x.device)
+        scratch = (partial.data_ptr(), None,
+                   _counter(x.device, 2 * B).data_ptr())
+    else:
+        scratch = (None, None, None)
     lib = build.load("groupnorm")
     fn = lib.ed_group_norm
     if not fn.argtypes:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), w_bf16,
-                  y.data_ptr(), partial.data_ptr(), scale_shift[0].data_ptr(),
-                  scale_shift[1].data_ptr(), B, S, C, groups, nchunks,
-                  float(eps), int(silu), _DTYPES[x.dtype], vectorized, stream)
+                  y.data_ptr(), *scratch, B, S, C, groups, float(eps),
+                  int(silu), _DTYPES[x.dtype], plan.code, plan.vec,
+                  plan.cluster, plan.span, plan.rows_per_cta, plan.smem_bytes,
+                  plan.blocks, stream)
     build.check(lib, code, "fused_group_norm")
     fused_group_norm.launches += 1
-    note_launch("fused_group_norm", str(x.dtype), B, H, W, C, bool(silu))
+    note_launch("fused_group_norm", str(x.dtype), str(weight.dtype),
+                float(eps), B, H, W, C, bool(silu))
     return y
 
 
 fused_group_norm.launches = 0
+fused_group_norm.copies = 0  # inputs that x.contiguous() had to copy
+
+
+def max_active_clusters(plan: GroupNormPlan, dtype: torch.dtype) -> int:
+    """How many clusters of a cluster-body plan the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``); 0 would mean the plan cannot be
+    scheduled."""
+    if plan.body != "cluster":
+        raise ValueError("only the cluster body launches clusters")
+    lib = build.load("groupnorm")
+    fn = lib.ed_group_norm_max_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    n = fn(_DTYPES[dtype], plan.cluster, plan.smem_bytes)
+    if n < 0:
+        build.check(lib, -n, "max_active_clusters")
+    return n
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -116,7 +116,8 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   vectorized, stream)
     build.check(lib, code, "fused_layer_norm")
     fused_layer_norm.launches += 1
-    note_launch("fused_layer_norm", str(x.dtype), N, C)
+    note_launch("fused_layer_norm", str(x.dtype), str(weight.dtype), float(eps),
+                N, C)
     return y
 
 
