@@ -23,22 +23,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
   model     per bundle, one full-width batch-8 UNet forward and one VAE
             decode with the kernels against the same modules with the plain
             versions; for the bundles that run the conv kernel, the forward
-            with conv_impl='kernel' against conv_impl='cudnn'
+            with conv_impl='kernel' against conv_impl='cudnn'; for the SDXL
+            ControlNet bundle, one batch-8 ControlNet + UNet forward with
+            every kernel against every plain version and cuDNN convs
   requests  ElasticDiffusion.generate_image answers requests at full width
-            with seeded random weights on three paths, one bundle at a time:
+            with seeded random weights on five paths, one bundle at a time:
             SDXL 1.0 and SD 1.5 with conv_impl='kernel', SD 2.1 with the
-            default conv_impl='cudnn'; launch counts are set to 0 just before
+            default conv_impl='cudnn', and ControlNet text2img on SDXL 1.0
+            (canny) and SD 1.5 (depth, through the port's DPT-large), both
+            with conv_impl='kernel'; launch counts are set to 0 just before
             each path and read just after; `unchecked_launches` lists the
             shapes a path launched that the kernels phase did not check, and
             any shape among them fails the run. Then the path's first request
             runs again with every plain version and cuDNN convs, same seed:
             its final latents are held to the kernels' (`end_to_end`, rel L2
             within E2E_TOL_REL_L2), and the random draws of the two runs must
-            be the same
+            be the same. A ControlNet path also fails when the RMS of the
+            ControlNet's mid residual or first down residual is 0 at the
+            first step of its first request
 
-Every bundle's biases and norm weights are moved off their seeded init
-(`perturb_bundle`) as soon as it loads, so that a bias or norm parameter
-wired to the wrong place shows in the model and end-to-end checks.
+Every bundle's biases and norm weights (the ControlNet's and the DPT's
+too) are moved off their seeded init (`perturb_bundle`) as soon as it
+loads, so that a bias or norm parameter wired to the wrong place shows in
+the model and end-to-end checks. The port's seeded init gives the
+ControlNet's zero convolutions lecun-normal weights where Flax gives zeros,
+so at random weights its residuals are not 0 and a run can see them.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the main paths, error, time and bound. A
@@ -636,8 +645,8 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-# the three paths of the requests phase: bundle, conv_impl, latent of the
-# batch-8 model check, requests
+# the paths of the requests phase: bundle, conv_impl, latent of the batch-8
+# model check (none: no model check), ControlNet, requests
 PATHS = (
     {"name": "sdxl", "sd_version": "XL1.0", "conv_impl": "kernel",
      "latent": 128,
@@ -648,16 +657,22 @@ PATHS = (
     {"name": "sd21", "sd_version": "2.1", "conv_impl": "cudnn", "latent": 64,
      "requests": ({"height": 512, "width": 768},
                   {"height": 768, "width": 768})},
+    # ControlNet text2img: the condition of each request is a seeded image of
+    # shapes on a background through the port's preprocessors. The SDXL
+    # ControlNet gets its own batch-8 model check; the SD 1.5 one none (its
+    # shapes are the SD 1.5 UNet's down path).
+    {"name": "sdxl_canny", "sd_version": "XL1.0", "conv_impl": "kernel",
+     "latent": 128, "controlnet": "canny",
+     "requests": ({"height": 1024, "width": 1536},)},
+    {"name": "sd15_depth", "sd_version": "1.5", "conv_impl": "kernel",
+     "controlnet": "depth", "requests": ({"height": 512, "width": 768},)},
 )
 
 
-def phase_model(bundle, path):
-    """Kernels against plain versions inside the full-width models, and for
-    a path that runs it, the conv kernel against cuDNN."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def unet_inputs(bundle, n: int, gen: torch.Generator):
+    """(latent, context, SDXL extras) of a batch-8 forward at n x n."""
     dt = bundle.runtime.compute_dtype
     ucfg = bundle.config.unet
-    n = path["latent"]
     lat = torch.randn(8, 4, n, n, generator=gen, device="cuda").to(dt)
     ctx = torch.randn(8, 77, ucfg.cross_attention_dim, generator=gen,
                       device="cuda").to(dt)
@@ -668,6 +683,14 @@ def phase_model(bundle, path):
               "added_time_ids": torch.tensor(
                   [[4096.0, 6144.0, 0.0, 0.0, 4096.0, 6144.0]],
                   device="cuda").expand(8, 6)}
+    return lat, ctx, kw
+
+
+def phase_model(bundle, path):
+    """Kernels against plain versions inside the full-width models, and for
+    a path that runs it, the conv kernel against cuDNN."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lat, ctx, kw = unet_inputs(bundle, path["latent"], gen)
     z = torch.randn(1, 4, 64, 96, generator=gen, device="cuda")
     out = {"phase": "model", "path": path["name"], "tolerance_rel_l2": 5e-2,
            "tolerance_why": "bf16 activations through the whole network; the "
@@ -711,6 +734,52 @@ def phase_model(bundle, path):
                  f"{out['tolerance_rel_l2']}")
 
 
+def phase_controlnet_model(bundle, path):
+    """One batch-8 ControlNet + UNet forward at full width, every kernel
+    (the path's conv_impl) against every plain version and cuDNN convs; the
+    ControlNet's own time beside the UNet's."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n, f = path["latent"], bundle.vae_scale_factor
+    lat, ctx, kw = unet_inputs(bundle, n, gen)
+    cond = torch.rand(8, 3, n * f, n * f, generator=gen, device="cuda")
+    controlnet = lambda: bundle.apply_controlnet(lat, 501.0, ctx, cond, **kw)
+    out = {"phase": "model", "path": path["name"], "tolerance_rel_l2": 5e-2,
+           "tolerance_why": "bf16 activations through the ControlNet and the "
+                            "UNet; kernels and plain versions round and sum "
+                            "at different places"}
+    res = {}
+    for mode, conv in (("auto", path["conv_impl"]), ("off", "cudnn")):
+        bundle.set_use_kernels(mode)
+        bundle.set_conv_impl(conv)
+        down, mid = controlnet()
+        eps = bundle.apply_unet(lat, 501.0, ctx, down_block_residuals=down,
+                                mid_block_residual=mid, **kw)
+        res[mode] = (down[0], mid, eps)
+        out[f"controlnet_ms_{mode}"] = time_ms(controlnet, 1, 5)
+        out[f"unet_with_residuals_ms_{mode}"] = time_ms(
+            lambda: bundle.apply_unet(lat, 501.0, ctx,
+                                      down_block_residuals=down,
+                                      mid_block_residual=mid, **kw), 1, 5)
+        del down
+    bundle.set_use_kernels("auto")
+    bundle.set_conv_impl(path["conv_impl"])
+    for i, name in enumerate(("down0_residual", "mid_residual",
+                              "unet_with_residuals")):
+        a, b = res["auto"][i], res["off"][i]
+        if not torch.isfinite(a.float()).all():
+            fail(f"{path['name']} {name}: output with kernels is not finite")
+        out[f"{name}_shape"] = list(a.shape)
+        out[f"{name}_rel_l2"] = rel_l2(a, b)
+        out[f"{name}_rms"] = a.float().pow(2).mean().sqrt().item()
+    emit(out)
+    for name in ("down0_residual", "mid_residual", "unet_with_residuals"):
+        if not out[f"{name}_rel_l2"] <= out["tolerance_rel_l2"]:
+            fail(f"{path['name']} {name}: rel L2 {out[f'{name}_rel_l2']} over "
+                 f"{out['tolerance_rel_l2']}")
+        if not out[f"{name}_rms"] > 0:
+            fail(f"{path['name']} {name}: zero output")
+
+
 def kernel_counts():
     from elasticdiffusion_tpu_torch.kernels.conv3x3 import conv3x3
     from elasticdiffusion_tpu_torch.kernels.flash_attention import flash_attention
@@ -728,37 +797,49 @@ def plain_cuda_counts():
             "group_norm": group_norm}
 
 
-def gate_convs(unet):
-    """The UNet's Conv3x3 modules whose widths are inside the kernel's gate."""
+def gate_convs(model):
+    """The Conv3x3 modules of a UNet or ControlNet whose widths are inside
+    the kernel's gate."""
     from elasticdiffusion_tpu_torch.kernels.conv3x3 import in_gate
     from elasticdiffusion_tpu_torch.models.layers import Conv3x3
-    return [m for m in unet.modules() if isinstance(m, Conv3x3)
+    return [m for m in model.modules() if isinstance(m, Conv3x3)
             and in_gate((1, 8, 8, m.in_channels),
                         (3, 3, m.in_channels, m.out_channels))]
 
 
 @torch.no_grad()
-def perturb_bundle(bundle, seed: int) -> int:
-    """Moves every bias and every norm weight of a freshly loaded bundle off
-    its seeded init (biases 0, norm weights 1) by 0.1 N(0, 1) from a seeded
-    generator, so that a bias or a norm parameter wired to the wrong place
-    changes the answer. The compute-dtype VAE copy takes the fp32 VAE's new
-    values. Returns the number of tensors moved."""
+def perturb_modules(models, gen: torch.Generator) -> int:
+    """Moves every bias and every norm weight of freshly loaded models off
+    their seeded init (biases 0, norm weights 1) by 0.1 N(0, 1) from a
+    seeded generator, so that a bias or a norm parameter wired to the wrong
+    place changes the answer. Returns the number of tensors moved."""
     import torch.nn as nn
-    gen = torch.Generator(device=bundle.device).manual_seed(seed)
     moved = 0
-    for model in (bundle.unet, bundle.vae_fp32, *bundle.text_models):
+    for model in models:
         for m in model.modules():
             params = [m.bias] if isinstance(getattr(m, "bias", None),
                                             nn.Parameter) else []
             if (isinstance(getattr(m, "weight", None), nn.Parameter)
                     and params and not isinstance(
-                        m, (nn.Linear, nn.Conv2d, nn.Embedding))):
+                        m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d,
+                            nn.Embedding))):
                 params.append(m.weight)  # a norm (seeded_init_'s rule)
             for p in params:
                 p.add_((0.1 * torch.randn(p.shape, generator=gen,
                                           device=p.device)).to(p.dtype))
                 moved += 1
+    return moved
+
+
+@torch.no_grad()
+def perturb_bundle(bundle, seed: int) -> int:
+    """`perturb_modules` on every model of a bundle, the ControlNet too. The
+    compute-dtype VAE copy takes the fp32 VAE's new values."""
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    models = [bundle.unet, bundle.vae_fp32, *bundle.text_models]
+    if bundle.controlnet is not None:
+        models.append(bundle.controlnet)
+    moved = perturb_modules(models, gen)
     if bundle.vae is not bundle.vae_fp32:
         for a, b in zip(bundle.vae.parameters(), bundle.vae_fp32.parameters()):
             a.copy_(b)
@@ -795,24 +876,80 @@ E2E_TOL_REL_L2 = 5e-2
 E2E_TOL_WHY = ("bf16 activations through 4 steps of 2(rs+1)+V UNet forwards: "
                "the kernels and the plain versions round and sum at different "
                "places in every norm, attention and conv; the first runs on "
-               "an H100 measured 0.026-0.035 on the three paths, and one "
-               "batch-8 forward differs by 0.016-0.018 (the model phase's "
-               "bar is 5e-2 too)")
+               "an NVIDIA H100 80GB HBM3 at 700 W measured 0.026-0.035 on "
+               "the three text2img paths and 0.028-0.029 on the two "
+               "ControlNet paths, and one batch-8 forward differs by "
+               "0.013-0.018 (the model phase's bar is 5e-2 too)")
 
 
-def generate(pipe, path, req, steps: int, resampling: int, seed: int):
+def scene(height: int, width: int, seed: int):
+    """A seeded RGB image of flat shapes on a background, uint8: edges for
+    canny and regions for the depth model."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    img = np.empty((height, width, 3), np.uint8)
+    img[:] = rng.integers(0, 256, 3)
+    yy, xx = np.mgrid[:height, :width]
+    for _ in range(12):
+        cy, cx = rng.integers(0, height), rng.integers(0, width)
+        ry, rx = rng.integers(height // 16, height // 4, 2)
+        if rng.random() < 0.5:  # an ellipse
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+        else:                   # a rectangle
+            inside = (abs(yy - cy) <= ry) & (abs(xx - cx) <= rx)
+        img[inside] = rng.integers(0, 256, 3)
+    return img
+
+
+def condition_images(path, seed: int) -> list:
+    """The ControlNet condition of each request of a path, as a user makes
+    it: a scene through the port's process_condition_image (canny, or depth
+    from a DPT-large with seeded random weights, its biases and norm weights
+    perturbed) and prepare_image; (1, 3, H, W) in [0, 1].
+
+    With random weights the sign of the depth head's last 1x1 conv, summed
+    over 32 non-negative (ReLU) inputs with a large common part, is one coin
+    flip for the whole image, and its ReLU then gives a constant depth map
+    half of the time (the JAX package's DPT test shifts the head's biases
+    for the same reason). Its weights are made non-negative, so the depth
+    map varies with the scene."""
+    from elasticdiffusion_tpu_torch.apps.preprocessors import (
+        prepare_image, process_condition_image)
+    depth_fn = None
+    if path["controlnet"] == "depth":
+        from elasticdiffusion_tpu_torch.models.dpt import (
+            DPT_LARGE, make_depth_fn, random_dpt)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+        dpt = random_dpt(DPT_LARGE, gen, device="cuda")
+        perturb_modules([dpt], gen)
+        with torch.no_grad():
+            dpt.head.head[4].weight.abs_()
+        depth_fn = make_depth_fn(dpt)
+    out = []
+    for i, req in enumerate(path["requests"]):
+        h, w = req["height"], req["width"]
+        pil = process_condition_image(scene(h, w, seed + i),
+                                      path["controlnet"], depth_fn)
+        out.append(prepare_image(pil, w, h))
+    return out
+
+
+def generate(pipe, path, req, steps: int, resampling: int, seed: int,
+             condition=None):
     """One request of a path from a seed; (images, info, generator states)."""
     pipe.seed_everything(seed)
+    extra = {} if condition is None else {"condition_image": condition}
     with record_generators() as rec:
         imgs, info = pipe.generate_image(
             "a photo of a lighthouse on a cliff at dusk", negative_prompts="",
             num_inference_steps=steps, resampling_steps=resampling,
-            repaint_sampling=True, return_arrays=True, **req)
+            repaint_sampling=True, return_arrays=True, **req, **extra)
     torch.cuda.synchronize()
     return imgs, info, rec.states()
 
 
-def end_to_end(pipe, path, steps: int, resampling: int, kernel_run) -> dict:
+def end_to_end(pipe, path, steps: int, resampling: int, kernel_run,
+               condition=None) -> dict:
     """The path's smallest request again with every kernel off, against
     `kernel_run` = (info, generator states) of the same request and seed
     with the kernels."""
@@ -821,7 +958,7 @@ def end_to_end(pipe, path, steps: int, resampling: int, kernel_run) -> dict:
     bundle.set_conv_impl("cudnn")
     try:
         _, info, states = generate(pipe, path, path["requests"][0], steps,
-                                   resampling, 0)
+                                   resampling, 0, condition)
     finally:
         bundle.set_use_kernels("auto")
         bundle.set_conv_impl(path["conv_impl"])
@@ -847,7 +984,18 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     import elasticdiffusion_tpu_torch.kernels as kernels
     wrappers, plain = kernel_counts(), plain_cuda_counts()
     conv_on = path["conv_impl"] == "kernel"
-    convs = gate_convs(pipe.bundle.unet)
+    bundle = pipe.bundle
+    controlnet = bundle.controlnet
+    conditions = [None] * len(path["requests"])
+    condition_seconds = None
+    if controlnet is not None:
+        t0 = time.time()
+        conditions = condition_images(path, 100)
+        torch.cuda.synchronize()
+        condition_seconds = time.time() - t0
+    unet_convs = gate_convs(bundle.unet)
+    cn_convs = [] if controlnet is None else gate_convs(controlnet)
+    convs = unet_convs + cn_convs
     for w in wrappers.values():
         w.launches = 0
     wrappers["conv3x3"].copies = 0
@@ -856,9 +1004,23 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         d.plain_cuda_calls = 0
     for m in convs:
         m.library_cuda_calls = 0
-    unet_calls = [0]
-    hook = pipe.bundle.unet.register_forward_hook(
-        lambda *a: unet_calls.__setitem__(0, unet_calls[0] + 1))
+    calls = collections.Counter()
+    residual_rms = {}
+
+    def count(name):
+        return lambda *a: calls.update([name])
+
+    def first_residuals(module, inputs, out):
+        # the ControlNet's first call of the path: the first step's direction
+        if not residual_rms:
+            down, mid = out
+            for name, r in (("mid", mid), ("down0", down[0])):
+                residual_rms[name] = r.float().pow(2).mean().sqrt().item()
+
+    hooks = [bundle.unet.register_forward_hook(count("unet"))]
+    if controlnet is not None:
+        hooks += [controlnet.register_forward_hook(count("controlnet")),
+                  controlnet.register_forward_hook(first_residuals)]
     kernels.launch_log = collections.Counter()
 
     answers, first = [], None
@@ -866,7 +1028,8 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         before = {n: w.launches for n, w in wrappers.items()}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        imgs, info, states = generate(pipe, path, req, steps, resampling, i)
+        imgs, info, states = generate(pipe, path, req, steps, resampling, i,
+                                      conditions[i])
         wall = time.time() - t0
         if i == 0:
             first = (info, states)
@@ -890,15 +1053,17 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
                  if c == 0 and (conv_on or n != "conv3x3")]
         if never:
             fail(f"{path['name']} {req}: never launched: {never}")
-    hook.remove()
+    for h in hooks:
+        h.remove()
     log = kernels.launch_log
     kernels.launch_log = None
     plain_calls = {n: d.plain_cuda_calls for n, d in plain.items()}
     totals = {n: w.launches for n, w in wrappers.items()}
     cudnn_in_gate = sum(m.library_cuda_calls for m in convs)
     gn_copies = wrappers["fused_group_norm"].copies
-    e2e = end_to_end(pipe, path, steps, resampling, first)
-    expected_conv = len(convs) * unet_calls[0] if conv_on else 0
+    e2e = end_to_end(pipe, path, steps, resampling, first, conditions[0])
+    expected_conv = (len(unet_convs) * calls["unet"]
+                     + len(cn_convs) * calls["controlnet"]) if conv_on else 0
     unchecked = {} if checked is None else {
         "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
         if key not in checked}
@@ -906,8 +1071,15 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "sd_version": path["sd_version"], "conv_impl": path["conv_impl"],
           "steps": steps, "resampling_steps": resampling,
           "answers": answers, "plain_versions_on_cuda": plain_calls,
-          "launches": totals, "unet_calls": unet_calls[0],
-          "gate_convs_per_unet_call": len(convs),
+          "launches": totals, "unet_calls": calls["unet"],
+          "gate_convs_per_unet_call": len(unet_convs),
+          "controlnet": path.get("controlnet"),
+          "controlnet_calls": calls["controlnet"],
+          "gate_convs_per_controlnet_call": len(cn_convs),
+          "controlnet_residual_rms_first_step": residual_rms,
+          "condition_seconds": condition_seconds,
+          "condition_std": [None if c is None else float(c.std())
+                            for c in conditions],
           "conv3x3_expected_launches": expected_conv,
           "conv3x3_operand_copies": wrappers["conv3x3"].copies,
           "cudnn_calls_in_gate": cudnn_in_gate,
@@ -927,7 +1099,18 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
              f"inside the conv kernel's gate under conv_impl='kernel'")
     if totals["conv3x3"] != expected_conv:
         fail(f"{path['name']}: conv3x3 launched {totals['conv3x3']} times, the "
-             f"code gives {len(convs)} x {unet_calls[0]} = {expected_conv}")
+             f"code gives {len(unet_convs)} x {calls['unet']} + "
+             f"{len(cn_convs)} x {calls['controlnet']} = {expected_conv}")
+    if controlnet is not None:
+        if calls["controlnet"] != calls["unet"]:
+            fail(f"{path['name']}: {calls['controlnet']} ControlNet calls for "
+                 f"{calls['unet']} UNet calls")
+        if not (len(residual_rms) == 2
+                and all(v > 0 for v in residual_rms.values())):
+            fail(f"{path['name']}: the ControlNet's residuals are zero at the "
+                 f"first step: {residual_rms}")
+        if not all(float(c.std()) > 0 for c in conditions):
+            fail(f"{path['name']}: a condition image is constant")
     return log, totals
 
 
@@ -999,19 +1182,24 @@ def main(argv=None) -> int:
             t0 = time.time()
             bundle = load_bundle(
                 path["sd_version"], seed=opt.seed, device="cuda",
-                runtime=RuntimeConfig(conv_impl=path["conv_impl"]))
+                runtime=RuntimeConfig(conv_impl=path["conv_impl"]),
+                controlnet_model=path.get("controlnet"))
             moved = perturb_bundle(bundle, opt.seed + 1)
             torch.cuda.synchronize()
             emit({"phase": "load", "path": path["name"],
                   "sd_version": path["sd_version"], "seconds": time.time() - t0,
                   "memory_allocated": torch.cuda.memory_allocated(),
                   "perturbed_tensors": moved})
-            if "model" in phases:
+            if "model" in phases and "latent" in path:
                 with torch.no_grad():
-                    phase_model(bundle, path)
+                    if bundle.controlnet is None:
+                        phase_model(bundle, path)
+                    else:
+                        phase_controlnet_model(bundle, path)
             if "requests" in phases:
                 pipe = ElasticDiffusion(device="cuda", bundle=bundle,
-                                        sd_version=path["sd_version"])
+                                        sd_version=path["sd_version"],
+                                        controlnet_model=path.get("controlnet"))
                 logs[path["name"]], t = phase_requests(
                     pipe, path, opt.steps, opt.resampling_steps, checked)
                 totals.update(t)

@@ -4,7 +4,9 @@ Counterpart of ``elasticdiffusion_tpu/core/pipeline.py``. One denoise step
 is: the global CFG direction from resampled low-resolution forwards, the
 local unconditional score from one batched pass over patch views, a DDIM
 update, optionally the repaint re-estimation, and the analytic
-reduced-resolution guidance. PyTorch runs eagerly, so the step is a plain
+reduced-resolution guidance. With a ControlNet bundle and a
+``condition_image``, every UNet forward of the step takes the ControlNet's
+residuals. PyTorch runs eagerly, so the step is a plain
 method and the timestep loop a Python loop; per-step constants (DDIM
 coefficients, RRG weights, background tables) are computed before the loop.
 
@@ -24,6 +26,7 @@ import torch
 from ..configs import RuntimeConfig, ViewConfig
 from ..models.registry import ModelBundle, load_bundle, resolve_device
 from ..ops.resample import build_resample_plan, get_downsample_size
+from ..ops.resize import nearest_resize
 from ..ops.views import build_view_plan
 from ..sched.ddim import DDIMScheduler
 from ..sched.weight_schedulers import (CosineScheduler, make_rrg_scheduler,
@@ -62,6 +65,9 @@ class _StepContext:
     add_text_cfg: Optional[torch.Tensor] = None
     uncond_pooled: Optional[torch.Tensor] = None
     add_time_ids: Optional[torch.Tensor] = None
+    # ControlNet condition (B, 3, down_h * vsf, down_w * vsf); None without
+    controlnet_cond: Optional[torch.Tensor] = None
+    controlnet_scale: float = 1.0
 
 
 class ElasticDiffusion:
@@ -84,8 +90,6 @@ class ElasticDiffusion:
                  mesh=None):
         if mesh is not None:
             raise _later("a device mesh", "multi-GPU")
-        if controlnet_model is not None:
-            raise _later("ControlNet", "ControlNet")
         if low_vram:
             raise _later("low_vram (it shapes the tiled decode)",
                          "tiled and halo decode")
@@ -96,12 +100,14 @@ class ElasticDiffusion:
         if bundle is None:
             bundle = load_bundle(sd_version, runtime=runtime or RuntimeConfig(),
                                  checkpoint_dir=checkpoint_dir,
+                                 controlnet_model=controlnet_model,
                                  tokenizer_dirs=tokenizer_dirs, device=device)
         elif device is not None and \
                 resolve_device(device).type != bundle.device.type:
             raise ValueError(f"bundle lives on {bundle.device}, not on "
                              f"{device!r}")
         self.bundle = bundle
+        self.controlnet_model = controlnet_model
         self.device = bundle.device
         # a caller-configured bundle keeps its runtime unless one is given
         self.runtime = runtime if runtime is not None else bundle.runtime
@@ -203,11 +209,15 @@ class ElasticDiffusion:
             self.bundle, lat, ctx.generator, t, ctx.text_cfg,
             ctx.resample_plan, ctx.down_pad, bg_down, resampling_steps,
             ctx.drop_p, add_text_embeds_cfg=ctx.add_text_cfg,
-            add_time_ids=ctx.add_time_ids, scripted_picks=picks)
+            add_time_ids=ctx.add_time_ids, scripted_picks=picks,
+            controlnet_cond=ctx.controlnet_cond,
+            controlnet_scale=ctx.controlnet_scale)
         local = signals.compute_local_uncond_signal(
             self.bundle, lat, t, ctx.uncond_text, ctx.view_plan, ctx.view_pad,
             bg_view, uncond_pooled=ctx.uncond_pooled,
-            add_time_ids=ctx.add_time_ids, view_batch_size=ctx.view_chunk)
+            add_time_ids=ctx.add_time_ids, view_batch_size=ctx.view_chunk,
+            controlnet_cond=ctx.controlnet_cond,
+            controlnet_scale=ctx.controlnet_scale)
         return res, local
 
     def _denoise_step(self, ctx: _StepContext, lat, inp: Dict[str, Any],
@@ -270,13 +280,17 @@ class ElasticDiffusion:
         spelling. Extras: latents / scripted_noise (injected randomness for
         parity), return_arrays. Returns (images, image_log): PIL images, or
         with return_arrays a (B, 3, H, W) float array in [0, 1] and
-        {'latent': final latent, ...}."""
-        if condition_image is not None:
-            raise _later("condition_image (ControlNet)", "ControlNet")
+        {'latent': final latent, ...}.
+
+        condition_image: (1 | B, 3, h, w) or (3, h, w) in [0, 1], the
+        ControlNet condition (``apps/preprocessors.py`` makes one); it is
+        nearest-resized to the downsampled size in pixels when it has
+        another size. Needs a bundle loaded with a ControlNet."""
         if tiled_decoder:
             raise _later("tiled_decoder=True", "tiled and halo decode")
         if checkpoint_path is not None or resume_from is not None:
-            raise _later("latent checkpoint / resume", "apps and utils")
+            raise _later("latent checkpoint / resume",
+                         "latent checkpoint/resume")
         t_fn0 = time.time()
         b = self.bundle
         dev = self.device
@@ -326,6 +340,23 @@ class ElasticDiffusion:
                                                   default_size)
             uncond_pooled_arg = uncond_pooled
 
+        # ControlNet condition, at the downsampled size in pixels: the
+        # direction pads it, the local signal upsamples and crops it
+        cn_cond = None
+        if condition_image is not None:
+            if b.controlnet is None:
+                raise ValueError("condition_image needs a bundle with a "
+                                 "ControlNet (controlnet_model=...)")
+            cn_cond = torch.as_tensor(condition_image, dtype=torch.float32,
+                                      device=dev)
+            if cn_cond.dim() == 3:
+                cn_cond = cn_cond[None]
+            if cn_cond.shape[1] != 3 or cn_cond.shape[0] not in (1, B):
+                raise ValueError(f"condition must be (1|{B}, 3, h, w) in "
+                                 f"[0, 1], got {tuple(cn_cond.shape)}")
+            cn_cond = nearest_resize(cn_cond, (down_h * vsf, down_w * vsf))
+            cn_cond = cn_cond.expand(B, *cn_cond.shape[1:])
+
         # initial latent
         if latents is None:
             gen_init = torch.Generator(device=dev).manual_seed(
@@ -353,7 +384,8 @@ class ElasticDiffusion:
             generator=torch.Generator(device=dev).manual_seed(
                 _fold(self._seed, 3)),
             add_text_cfg=add_text_cfg, uncond_pooled=uncond_pooled_arg,
-            add_time_ids=add_time_ids)
+            add_time_ids=add_time_ids, controlnet_cond=cn_cond,
+            controlnet_scale=controlnet_conditioning_scale)
 
         do_repaint = repaint_sampling and resampling_steps > 0
         T = num_inference_steps

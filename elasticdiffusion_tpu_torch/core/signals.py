@@ -18,13 +18,20 @@ Structure, as in the JAX package:
   - every random draw can be overridden by recorded values (ScriptedNoise,
     or the scripted_* arguments) so parity harnesses can inject the same
     randomness into both packages
+  - a ControlNet condition (B, 3, down_h * vsf, down_w * vsf) in [0, 1]
+    follows each estimator's batch layout: doubled for the CFG pair,
+    zero-padded with the latent's background pads and tiled over the
+    resampling substeps for the direction, its first image nearest-upsampled
+    to the full latent's pixels and cropped per view for the local signal
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.resample import (ResamplePlan, apply_resample, fill_in,
                             mix_with_prev, sample_pick_indices,
@@ -47,20 +54,29 @@ class ScriptedNoise(NamedTuple):
 
 
 def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
-              add_text_embeds=None, add_time_ids=None):
-    """background pad -> UNet -> crop. x: (B', C, h, w)."""
+              add_text_embeds=None, add_time_ids=None, controlnet_cond=None,
+              controlnet_scale: float = 1.0):
+    """background pad -> (ControlNet ->) UNet -> crop. x: (B', C, h, w);
+    controlnet_cond: (B', 3, H', W') at the padded input's pixels."""
     x_in = pad_with_background(x, pad_spec, step_bgs)
     kwargs = {}
     if add_text_embeds is not None:
         kwargs = {"added_text_embeds": add_text_embeds,
                   "added_time_ids": add_time_ids}
+    if controlnet_cond is not None:
+        down, mid = bundle.apply_controlnet(
+            x_in, t, context, controlnet_cond,
+            conditioning_scale=controlnet_scale, **kwargs)
+        kwargs["down_block_residuals"] = down
+        kwargs["mid_block_residual"] = mid
     eps = bundle.apply_unet(x_in, t, context, **kwargs)
     return crop_from_padding(eps, pad_spec)
 
 
 def obtain_latent_direction(bundle, latent, t, text_embeds_cfg, pad_spec,
                             step_bgs, add_text_embeds_cfg=None,
-                            add_time_ids=None):
+                            add_time_ids=None, controlnet_cond=None,
+                            controlnet_scale: float = 1.0):
     """CFG pair in one batched call.
 
     text_embeds_cfg: (2B, 77, D) stacked [uncond; cond].
@@ -68,11 +84,15 @@ def obtain_latent_direction(bundle, latent, t, text_embeds_cfg, pad_spec,
     """
     B = latent.shape[0]
     x2 = torch.cat([latent, latent]).to(bundle.runtime.compute_dtype)
+    cn = None
+    if controlnet_cond is not None:
+        cn = torch.cat([controlnet_cond, controlnet_cond])
     tid = None
     if add_time_ids is not None:
         tid = add_time_ids.expand(2 * B, *add_time_ids.shape[1:])
     eps = unet_step(bundle, x2, t, text_embeds_cfg, pad_spec, step_bgs,
-                    add_text_embeds=add_text_embeds_cfg, add_time_ids=tid)
+                    add_text_embeds=add_text_embeds_cfg, add_time_ids=tid,
+                    controlnet_cond=cn, controlnet_scale=controlnet_scale)
     eps = eps.float()
     eps_u, eps_c = eps[:B], eps[B:]
     return eps_c - eps_u, eps_u, eps_c
@@ -114,7 +134,9 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
                                  plan: ResamplePlan, pad_spec: PadSpec,
                                  step_bgs, resampling_steps: int, drop_p: float,
                                  add_text_embeds_cfg=None, add_time_ids=None,
-                                 scripted_picks=None) -> DirectionResult:
+                                 scripted_picks=None, controlnet_cond=None,
+                                 controlnet_scale: float = 1.0
+                                 ) -> DirectionResult:
     """Global CFG direction with randomized resampling.
 
     The UNet inputs of all substeps are downsamples of the SAME latent, so:
@@ -149,8 +171,18 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
     tid = None
     if add_time_ids is not None:
         tid = add_time_ids.expand(2 * n_sub * B, *add_time_ids.shape[1:])
+    cn = None
+    if controlnet_cond is not None:
+        # the low-res condition is ZERO-padded by the latent's background
+        # pads in pixels, then laid out as the latents are
+        vsf = bundle.vae_scale_factor
+        l, r, tp, bp = pad_spec.pads
+        low = F.pad(controlnet_cond, (l * vsf, r * vsf, tp * vsf, bp * vsf))
+        cn = low.repeat(2 * n_sub, 1, 1, 1)
     eps = unet_step(bundle, x2, t, ctx, pad_spec, step_bgs,
-                    add_text_embeds=ate, add_time_ids=tid).float()
+                    add_text_embeds=ate, add_time_ids=tid,
+                    controlnet_cond=cn, controlnet_scale=controlnet_scale
+                    ).float()
     eps_u = eps[:n_sub * B].reshape(n_sub, B, C, dh, dw)
     eps_c = eps[n_sub * B:].reshape(n_sub, B, C, dh, dw)
     directions = eps_c - eps_u                       # (n_sub, B, C, dh, dw)
@@ -173,10 +205,33 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
                            downsampled_direction=down_dir)
 
 
+def view_conditions(controlnet_cond, plan: ViewPlan, B: int,
+                    vsf: int) -> torch.Tensor:
+    """The condition of every view, (V * B, 3, out_h * vsf, out_w * vsf):
+    the first image nearest-upsampled to the full latent's pixels and
+    broadcast over B, cropped with the view plan's rows and columns in
+    pixels (each latent index repeated vsf times, plus 0..vsf-1)."""
+    H, W = plan.latent_h * vsf, plan.latent_w * vsf
+    up = nearest_resize(controlnet_cond[:1], (H, W))
+    up = up.expand(B, *up.shape[1:])
+    sub = np.arange(vsf)
+    rows = (np.repeat(plan.rows * vsf, vsf, axis=1)
+            + np.tile(sub, plan.rows.shape[1]))
+    cols = (np.repeat(plan.cols * vsf, vsf, axis=1)
+            + np.tile(sub, plan.cols.shape[1]))
+    rows = torch.from_numpy(rows.astype(np.int64)).to(up.device)
+    cols = torch.from_numpy(cols.astype(np.int64)).to(up.device)
+    # (B, 3, V, h, w) -> (V, B, 3, h, w), the order of the latent views
+    views = up[:, :, rows[:, :, None], cols[:, None, :]].permute(2, 0, 1, 3, 4)
+    return views.reshape(-1, *views.shape[2:])
+
+
 def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
                                 plan: ViewPlan, pad_spec: PadSpec, step_bgs,
                                 uncond_pooled=None, add_time_ids=None,
-                                view_batch_size: int = 0):
+                                view_batch_size: int = 0,
+                                controlnet_cond=None,
+                                controlnet_scale: float = 1.0):
     """Local unconditional score over patch views.
 
     One batched UNet call over all V views, or chunks of view_batch_size
@@ -190,6 +245,8 @@ def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
     pooled = None if uncond_pooled is None else uncond_pooled.repeat(V, 1)
     tid = None if add_time_ids is None else \
         add_time_ids.expand(V * B, *add_time_ids.shape[1:])
+    cn = None if controlnet_cond is None else view_conditions(
+        controlnet_cond, plan, B, bundle.vae_scale_factor)
 
     chunk = view_batch_size * B if 0 < view_batch_size < V else V * B
     preds = []
@@ -198,7 +255,9 @@ def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
         preds.append(unet_step(
             bundle, vb[lo:hi], t, ctx[lo:hi], pad_spec, step_bgs,
             add_text_embeds=None if pooled is None else pooled[lo:hi],
-            add_time_ids=None if tid is None else tid[lo:hi]))
+            add_time_ids=None if tid is None else tid[lo:hi],
+            controlnet_cond=None if cn is None else cn[lo:hi],
+            controlnet_scale=controlnet_scale))
     preds = torch.cat(preds) if len(preds) > 1 else preds[0]
     preds = preds.reshape(V, B, *preds.shape[1:]).float()
     return scatter_first_writer(preds, plan)

@@ -1,8 +1,9 @@
 """Weights carried across from the JAX package's parameter trees.
 
-``unet_from_jax``, ``vae_from_jax`` and ``clip_from_jax`` take a parameter
-pytree of the JAX package (nested dicts whose leaves are numpy-convertible
-arrays) and return a ``state_dict`` for the port's module of the same model.
+``unet_from_jax``, ``vae_from_jax``, ``clip_from_jax``,
+``controlnet_from_jax`` and ``dpt_from_jax`` take a parameter pytree of the
+JAX package (nested dicts whose leaves are numpy-convertible arrays) and
+return a ``state_dict`` for the port's module of the same model.
 They reverse the layout transforms of the JAX package's checkpoint converter
 
   conv   flax (kh, kw, I, O) -> torch (O, I, kh, kw)
@@ -100,14 +101,41 @@ def _unet_module(path: tuple, n_blocks: int) -> str:
     raise KeyError(f"unknown UNet entry {path}")
 
 
+def _n_blocks(tree: Dict[str, Any]) -> int:
+    return 1 + max(int(m.group(1)) for k in tree
+                   if (m := re.match(r"down_(\d+)_", k)))
+
+
 def unet_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX UNet2DCondition params -> state_dict of the port's UNet."""
-    n_blocks = 1 + max(int(m.group(1)) for k in tree
-                       if (m := re.match(r"down_(\d+)_", k)))
+    n_blocks = _n_blocks(tree)
     out = {}
     for path, value in _flatten(tree):
         name, tensor = _leaf(path[-1], value)
         out[f"{_unet_module(path[:-1], n_blocks)}.{name}"] = tensor
+    return out
+
+
+def controlnet_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ControlNet params -> state_dict of the port's ControlNet. The
+    trunk is named as in the UNet; ``controlnet_cond_embedding/blocks_{i}``,
+    ``controlnet_down_{k}`` and ``controlnet_mid`` take the diffusers names
+    ``controlnet_cond_embedding.blocks.{i}``, ``controlnet_down_blocks.{k}``
+    and ``controlnet_mid_block``."""
+    n_blocks = _n_blocks(tree)
+    out = {}
+    for path, value in _flatten(tree):
+        name, tensor = _leaf(path[-1], value)
+        head = path[0]
+        if head == "controlnet_cond_embedding":
+            key = head + "." + path[1].replace("blocks_", "blocks.")
+        elif m := re.fullmatch(r"controlnet_down_(\d+)", head):
+            key = f"controlnet_down_blocks.{m.group(1)}"
+        elif head == "controlnet_mid":
+            key = "controlnet_mid_block"
+        else:
+            key = _unet_module(path[:-1], n_blocks)
+        out[f"{key}.{name}"] = tensor
     return out
 
 
@@ -169,5 +197,66 @@ def clip_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             key = "text_projection"
         else:
             raise KeyError(f"unknown CLIP entry {path}")
+        out[f"{key}.{name}"] = tensor
+    return out
+
+
+_DPT_LAYER = {"query": "attention.attention.query",
+              "key": "attention.attention.key",
+              "value": "attention.attention.value",
+              "attn_out": "attention.output.dense",
+              "intermediate": "intermediate.dense",
+              "output": "output.dense",
+              "layernorm_before": "layernorm_before",
+              "layernorm_after": "layernorm_after"}
+_DPT_HEAD = {"head_conv1": "head.head.0", "head_conv2": "head.head.2",
+             "head_conv3": "head.head.4"}
+
+
+def _dpt_module(path: tuple) -> str:
+    head = path[0]
+    if head == "patch_embeddings":
+        return "dpt.embeddings.patch_embeddings.projection"
+    if head in _DPT_HEAD:
+        return _DPT_HEAD[head]
+    m = re.fullmatch(r"([a-z_]+?)_(\d+)", head)
+    if m:
+        kind, j = m.group(1), m.group(2)
+        if kind == "layer":
+            return f"dpt.encoder.layer.{j}.{_DPT_LAYER[path[1]]}"
+        if kind == "readout_project":
+            return f"neck.reassemble_stage.readout_projects.{j}.0"
+        if kind in ("reassemble_proj", "reassemble_resize"):
+            sub = "projection" if kind == "reassemble_proj" else "resize"
+            return f"neck.reassemble_stage.layers.{j}.{sub}"
+        if kind == "neck_conv":
+            return f"neck.convs.{j}"
+        if kind == "fusion":
+            return f"neck.fusion_stage.layers.{j}." + ".".join(path[1:])
+    raise KeyError(f"unknown DPT entry {path}")
+
+
+def dpt_from_jax(tree: Dict[str, Any],
+                 reassemble_factors: Tuple[float, ...] = (4, 2, 1, 0.5)
+                 ) -> Dict[str, torch.Tensor]:
+    """JAX DPTDepthModel params -> state_dict of the port's DPTDepthModel,
+    named as ``transformers.DPTForDepthEstimation``. The reassemble stages
+    whose factor is above 1 upsample with a transposed conv: its Flax kernel
+    (kh, kw, I, O) becomes torch's (I, O, kh, kw), flipped in space, since
+    Flax's ``ConvTranspose`` (``transpose_kernel=False``) applies the kernel
+    unflipped where ``nn.ConvTranspose2d`` flips it."""
+    out = {}
+    for path, value in _flatten(tree):
+        if path[0] in ("cls_token", "position_embeddings"):
+            out[f"dpt.embeddings.{path[0]}"] = torch.tensor(np.asarray(value))
+            continue
+        key = _dpt_module(path[:-1])
+        m = re.fullmatch(r"reassemble_resize_(\d+)", path[0])
+        if m and path[-1] == "kernel" \
+                and reassemble_factors[int(m.group(1))] > 1:
+            a = np.asarray(value)[::-1, ::-1].transpose(2, 3, 0, 1)
+            out[f"{key}.weight"] = torch.tensor(np.ascontiguousarray(a))
+            continue
+        name, tensor = _leaf(path[-1], value)
         out[f"{key}.{name}"] = tensor
     return out

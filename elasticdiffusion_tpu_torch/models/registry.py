@@ -1,16 +1,18 @@
 """Model bundle: the full SD stack of one version, on one device.
 
 Counterpart of ``elasticdiffusion_tpu/models/registry.py``. A ``ModelBundle``
-holds the UNet, the VAE, the text encoders and the tokenizers, and offers the
-forwards the pipeline calls: ``apply_unet``, ``vae_decode``,
-``vae_encode_sample``, ``encode_text``. ``load_bundle`` builds one with seeded
-random weights directly on the device (no checkpoint files are part of the
-repository yet), for every family of ``configs.get_bundle_config``: SD 1.4 /
-1.5, SD 2.0 / 2.1 and SDXL 1.0 (two text encoders, the second tokenizer
-padding with id 0, fp32 ``force_upcast`` decode). ``runtime.conv_impl`` goes
-to the UNet only; the VAE's convolutions stay on cuDNN, as the JAX package's
-VAE never asks for its conv kernel. The JAX package's segmented chain, text
-offload and scan restacking are TPU-runtime work and have no counterpart.
+holds the UNet, the VAE, the text encoders, the tokenizers and, when asked
+for, the ControlNet, and offers the forwards the pipeline calls:
+``apply_unet``, ``apply_controlnet``, ``vae_decode``, ``vae_encode_sample``,
+``encode_text``. ``load_bundle`` builds one with seeded random weights
+directly on the device (no checkpoint files are part of the repository
+yet), for every family of ``configs.get_bundle_config``: SD 1.4 / 1.5, SD
+2.0 / 2.1 and SDXL 1.0 (two text encoders, the second tokenizer padding
+with id 0, fp32 ``force_upcast`` decode). ``runtime.conv_impl`` goes to the
+UNet and the ControlNet; the VAE's convolutions stay on cuDNN, as the JAX
+package's VAE never asks for its conv kernel. The JAX package's segmented
+chain, text offload and scan restacking are TPU-runtime work and have no
+counterpart.
 
 The device is explicit: ``device="cuda"`` is the default and raises when CUDA
 is absent; the CPU is used only when the caller passes ``device="cpu"``.
@@ -26,9 +28,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..configs import ModelBundleConfig, RuntimeConfig, get_bundle_config
+from ..configs import (ControlNetConfig, ModelBundleConfig, RuntimeConfig,
+                       get_bundle_config)
 from ..utils.tokenizer import CLIPTokenizer
 from .clip import CLIPTextModel
+from .controlnet import ControlNet
 from .layers import set_conv_impl, set_use_kernels
 from .unet import UNet2DCondition
 from .vae import AutoencoderKL
@@ -68,24 +72,46 @@ class ModelBundle:
     vae_fp32: AutoencoderKL       # fp32 master weights
     text_models: Tuple[CLIPTextModel, ...]
     tokenizers: Tuple[CLIPTokenizer, ...]
+    controlnet: Optional[ControlNet] = None
+
+    def _denoisers(self):
+        return [m for m in (self.unet, self.controlnet) if m is not None]
 
     def set_use_kernels(self, mode: str) -> None:
         """Flip every norm and attention module between the kernels and
         their plain versions ('auto' | 'on' | 'off')."""
-        for m in (self.unet, self.vae, self.vae_fp32, *self.text_models):
+        for m in (*self._denoisers(), self.vae, self.vae_fp32,
+                  *self.text_models):
             set_use_kernels(m, mode)
 
     def set_conv_impl(self, mode: str) -> None:
-        """'cudnn' | 'kernel' for the UNet's 3x3 convolutions (the VAE stays
-        on cuDNN)."""
-        set_conv_impl(self.unet, mode)
+        """'cudnn' | 'kernel' for the 3x3 convolutions of the UNet and the
+        ControlNet (the VAE stays on cuDNN)."""
+        for m in self._denoisers():
+            set_conv_impl(m, mode)
 
     @torch.no_grad()
     def apply_unet(self, latent_nchw, t, context, added_text_embeds=None,
-                   added_time_ids=None):
+                   added_time_ids=None, down_block_residuals=None,
+                   mid_block_residual=None):
         return self.unet(latent_nchw, t, context,
                          added_text_embeds=added_text_embeds,
-                         added_time_ids=added_time_ids)
+                         added_time_ids=added_time_ids,
+                         down_block_residuals=down_block_residuals,
+                         mid_block_residual=mid_block_residual)
+
+    @torch.no_grad()
+    def apply_controlnet(self, latent_nchw, t, context, condition_nchw,
+                         conditioning_scale=1.0, added_text_embeds=None,
+                         added_time_ids=None):
+        """(down residuals, mid residual) for ``apply_unet``."""
+        if self.controlnet is None:
+            raise ValueError("the bundle has no ControlNet: load it with "
+                             "controlnet_model=...")
+        return self.controlnet(latent_nchw, t, context, condition_nchw,
+                               conditioning_scale=conditioning_scale,
+                               added_text_embeds=added_text_embeds,
+                               added_time_ids=added_time_ids)
 
     @torch.no_grad()
     def vae_decode(self, latents_nchw):
@@ -128,10 +154,18 @@ class ModelBundle:
 def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights from an explicit generator, in place, on the module's
     device: matrices and convolutions N(0, 1/fan_in) (the JAX package's
-    lecun-normal), embeddings N(0, 0.02^2), norm weights 1, biases 0."""
+    lecun-normal), embeddings N(0, 0.02^2), norm weights 1, biases 0.
+
+    Flax initialises the ControlNet's 1x1 zero convolutions and its
+    conditioning embedding's ``conv_out`` to zeros; here they are
+    lecun-normal like every other convolution. At random weights that is
+    what makes the ControlNet's residuals non-zero, so that a run can see
+    whether the ControlNet is wired in."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            # weights are (O, I, ...); a transposed conv's (I, O, kh, kw)
+            fan_in = (m.weight[:, 0] if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0]).numel()
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -143,7 +177,7 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
 
 
-def _build(factory, device: torch.device, generator: torch.Generator):
+def build_seeded(factory, device: torch.device, generator: torch.Generator):
     """Construct on the meta device, allocate on `device`, init from the
     generator: no default init is ever computed and thrown away."""
     with torch.device("meta"):
@@ -172,29 +206,42 @@ def load_bundle(sd_version: str, runtime: RuntimeConfig = RuntimeConfig(),
                 seed: int = 0,
                 bundle_config: Optional[ModelBundleConfig] = None,
                 device="cuda") -> ModelBundle:
-    """Build a ModelBundle with seeded random weights on `device`."""
+    """Build a ModelBundle with seeded random weights on `device`.
+
+    `controlnet_model` ('canny' | 'depth') adds a ControlNet at the UNet's
+    widths (the two conditions share one architecture). It is built after
+    every other model, so the other models' weights do not depend on it."""
     if checkpoint_dir is not None:
         raise NotImplementedError(
             "loading converted checkpoints waits until checkpoint files are "
             "part of the repository (ROADMAP.md Queue 1, 'real checkpoints')")
-    if controlnet_model is not None:
-        raise NotImplementedError(
-            "ControlNet is not ported yet (ROADMAP.md Queue 1, ControlNet)")
     cfg = bundle_config or get_bundle_config(sd_version)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     uk = runtime.use_kernels
 
-    unet = _build(lambda: UNet2DCondition(cfg.unet, use_kernels=uk), dev, gen)
+    unet = build_seeded(lambda: UNet2DCondition(cfg.unet, use_kernels=uk),
+                        dev, gen)
     unet = unet.to(dtype=runtime.param_dtype,
                    memory_format=torch.channels_last)
     set_conv_impl(unet, runtime.conv_impl)
-    vae_fp32 = _build(lambda: AutoencoderKL(cfg.vae, use_kernels=uk), dev, gen)
+    vae_fp32 = build_seeded(lambda: AutoencoderKL(cfg.vae, use_kernels=uk),
+                            dev, gen)
     vae_fp32 = vae_fp32.to(memory_format=torch.channels_last)
     vae = _to_compute(vae_fp32, runtime.compute_dtype)
     text_models = tuple(
-        _build(lambda tc=tc: CLIPTextModel(tc, use_kernels=uk), dev, gen)
+        build_seeded(lambda tc=tc: CLIPTextModel(tc, use_kernels=uk), dev,
+                     gen)
         .to(dtype=runtime.param_dtype) for tc in cfg.text_encoders)
+    controlnet = None
+    if controlnet_model is not None:
+        cn_cfg = ControlNetConfig(unet=cfg.unet,
+                                  cond_downsample_factor=cfg.vae.scale_factor)
+        controlnet = build_seeded(
+            lambda: ControlNet(cn_cfg, use_kernels=uk), dev, gen)
+        controlnet = controlnet.to(dtype=runtime.param_dtype,
+                                   memory_format=torch.channels_last)
+        set_conv_impl(controlnet, runtime.conv_impl)
 
     if tokenizer_dirs is None:
         tokenizer_dirs = tuple([None] * len(cfg.text_encoders))
@@ -207,4 +254,4 @@ def load_bundle(sd_version: str, runtime: RuntimeConfig = RuntimeConfig(),
 
     return ModelBundle(config=cfg, runtime=runtime, device=dev, unet=unet,
                        vae=vae, vae_fp32=vae_fp32, text_models=text_models,
-                       tokenizers=tokenizers)
+                       tokenizers=tokenizers, controlnet=controlnet)

@@ -3,8 +3,10 @@
 Counterpart of ``elasticdiffusion_tpu/models/unet.py`` (its full forward):
 an epsilon-prediction UNet with cross-attention on the text embedding and,
 for SDXL, 'text_time' added conditioning. The TPU-runtime parts of the JAX
-module (segmented stages, scan restacking, remat) have no counterpart here;
-the ControlNet residual inputs come with the ControlNet slice.
+module (segmented stages, scan restacking, remat) have no counterpart here.
+``UNetTrunk`` is the stem, embedding, down and mid path that the UNet shares
+with the ControlNet (``models/controlnet.py``); the UNet takes the
+ControlNet's residuals as ``down_block_residuals`` / ``mid_block_residual``.
 
 Public call takes and returns NCHW. Inside, tensors are NCHW in the
 ``channels_last`` memory format (see ``models/layers.py``). Module names
@@ -13,7 +15,7 @@ follow the diffusers checkpoint (``down_blocks.{i}.resnets.{j}`` ...).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -33,7 +35,12 @@ class _Block(nn.Module):
         self.attentions = nn.ModuleList()
 
 
-class UNet2DCondition(nn.Module):
+class UNetTrunk(nn.Module):
+    """conv_in, the time (and SDXL add) embedding, the down blocks and the
+    mid block: the part of the UNet that the ControlNet copies. Modules are
+    registered in the UNet's order, so a seeded init gives the UNet the same
+    weights as before the split."""
+
     def __init__(self, config: UNetConfig, use_kernels: str = "auto"):
         super().__init__()
         self.config = cfg = config
@@ -41,14 +48,6 @@ class UNet2DCondition(nn.Module):
         n = len(bo)
         temb_dim = bo[0] * 4
         uk = use_kernels
-
-        def transformer(i):
-            heads = cfg.heads_for_block(i)
-            return Transformer2D(bo[i], heads, bo[i] // heads,
-                                 cfg.cross_attention_dim,
-                                 depth=cfg.transformer_layers_per_block[i],
-                                 use_linear_projection=cfg.use_linear_projection,
-                                 use_kernels=uk)
 
         self.conv_in = Conv3x3(cfg.in_channels, bo[0])
         self.time_embedding = TimestepEmbedding(bo[0], temb_dim)
@@ -65,7 +64,7 @@ class UNet2DCondition(nn.Module):
                                                  use_kernels=uk))
                 ch = bo[i]
                 if cfg.down_block_has_attn[i]:
-                    blk.attentions.append(transformer(i))
+                    blk.attentions.append(self._transformer(i, uk))
             if i < n - 1:
                 blk.downsamplers = nn.ModuleList([Downsample2D(ch)])
             self.down_blocks.append(blk)
@@ -73,28 +72,19 @@ class UNet2DCondition(nn.Module):
         self.mid_block = _Block()
         self.mid_block.resnets.append(ResnetBlock2D(ch, ch, temb_dim,
                                                     use_kernels=uk))
-        self.mid_block.attentions.append(transformer(n - 1))
+        self.mid_block.attentions.append(self._transformer(n - 1, uk))
         self.mid_block.resnets.append(ResnetBlock2D(ch, ch, temb_dim,
                                                     use_kernels=uk))
 
-        # diffusers up block k works at the channel index i = n - 1 - k
-        self.up_blocks = nn.ModuleList()
-        for k in range(n):
-            i = n - 1 - k
-            blk = _Block()
-            for j in range(cfg.layers_per_block + 1):
-                skip = bo[i] if j < cfg.layers_per_block else bo[max(i - 1, 0)]
-                blk.resnets.append(ResnetBlock2D(ch + skip, bo[i], temb_dim,
-                                                 use_kernels=uk))
-                ch = bo[i]
-                if cfg.down_block_has_attn[i]:
-                    blk.attentions.append(transformer(i))
-            if i > 0:
-                blk.upsamplers = nn.ModuleList([Upsample2D(ch)])
-            self.up_blocks.append(blk)
-
-        self.conv_norm_out = GroupNorm32(bo[0], silu=True, use_kernels=uk)
-        self.conv_out = Conv3x3(bo[0], cfg.out_channels)
+    def _transformer(self, i: int, use_kernels: str) -> Transformer2D:
+        cfg = self.config
+        bo = cfg.block_out_channels
+        heads = cfg.heads_for_block(i)
+        return Transformer2D(bo[i], heads, bo[i] // heads,
+                             cfg.cross_attention_dim,
+                             depth=cfg.transformer_layers_per_block[i],
+                             use_linear_projection=cfg.use_linear_projection,
+                             use_kernels=use_kernels)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -124,19 +114,9 @@ class UNet2DCondition(nn.Module):
             e = e + self.add_embedding(add_in.to(self.dtype))
         return e
 
-    def forward(self, sample_nchw: torch.Tensor, timesteps,
-                encoder_hidden_states: torch.Tensor,
-                added_text_embeds: Optional[torch.Tensor] = None,
-                added_time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """sample (B, C, H, W) + timesteps (scalar or (B,)) + context
-        (B, 77, D) -> eps (B, C, H, W) in the compute dtype."""
-        dt = self.dtype
-        context = encoder_hidden_states.to(dt)
-        x = sample_nchw.to(dt).contiguous(memory_format=torch.channels_last)
-        x = self.conv_in(x)
-        e = self._embedding(timesteps, x.shape[0], added_text_embeds,
-                            added_time_ids)
-
+    def _down(self, x, e, context):
+        """The down path: (x, its skips), the input first, then the output of
+        every resnet (+ attention) and downsampler."""
         residuals = [x]
         for blk in self.down_blocks:
             for j, resnet in enumerate(blk.resnets):
@@ -147,10 +127,74 @@ class UNet2DCondition(nn.Module):
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 residuals.append(x)
+        return x, residuals
 
+    def _mid(self, x, e, context):
         x = self.mid_block.resnets[0](x, e)
         x = self.mid_block.attentions[0](x, context)
-        x = self.mid_block.resnets[1](x, e)
+        return self.mid_block.resnets[1](x, e)
+
+
+class UNet2DCondition(UNetTrunk):
+    def __init__(self, config: UNetConfig, use_kernels: str = "auto"):
+        super().__init__(config, use_kernels)
+        cfg = config
+        bo = cfg.block_out_channels
+        n = len(bo)
+        temb_dim = bo[0] * 4
+        uk = use_kernels
+        ch = bo[-1]
+
+        # diffusers up block k works at the channel index i = n - 1 - k
+        self.up_blocks = nn.ModuleList()
+        for k in range(n):
+            i = n - 1 - k
+            blk = _Block()
+            for j in range(cfg.layers_per_block + 1):
+                skip = bo[i] if j < cfg.layers_per_block else bo[max(i - 1, 0)]
+                blk.resnets.append(ResnetBlock2D(ch + skip, bo[i], temb_dim,
+                                                 use_kernels=uk))
+                ch = bo[i]
+                if cfg.down_block_has_attn[i]:
+                    blk.attentions.append(self._transformer(i, uk))
+            if i > 0:
+                blk.upsamplers = nn.ModuleList([Upsample2D(ch)])
+            self.up_blocks.append(blk)
+
+        self.conv_norm_out = GroupNorm32(bo[0], silu=True, use_kernels=uk)
+        self.conv_out = Conv3x3(bo[0], cfg.out_channels)
+
+    def forward(self, sample_nchw: torch.Tensor, timesteps,
+                encoder_hidden_states: torch.Tensor,
+                added_text_embeds: Optional[torch.Tensor] = None,
+                added_time_ids: Optional[torch.Tensor] = None,
+                down_block_residuals: Optional[Sequence[torch.Tensor]] = None,
+                mid_block_residual: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """sample (B, C, H, W) + timesteps (scalar or (B,)) + context
+        (B, 77, D) -> eps (B, C, H, W) in the compute dtype.
+
+        The ControlNet's residuals (NCHW, one per skip of the down path and
+        one for the mid block) are added in the compute dtype to the skips
+        after the whole down path and to the mid block's output."""
+        dt = self.dtype
+        context = encoder_hidden_states.to(dt)
+        x = sample_nchw.to(dt).contiguous(memory_format=torch.channels_last)
+        x = self.conv_in(x)
+        e = self._embedding(timesteps, x.shape[0], added_text_embeds,
+                            added_time_ids)
+
+        x, residuals = self._down(x, e, context)
+        if down_block_residuals is not None:
+            if len(down_block_residuals) != len(residuals):
+                raise ValueError(f"expected {len(residuals)} down residuals, "
+                                 f"got {len(down_block_residuals)}")
+            residuals = [r + a.to(r.dtype)
+                         for r, a in zip(residuals, down_block_residuals)]
+
+        x = self._mid(x, e, context)
+        if mid_block_residual is not None:
+            x = x + mid_block_residual.to(x.dtype)
 
         for blk in self.up_blocks:
             for j, resnet in enumerate(blk.resnets):

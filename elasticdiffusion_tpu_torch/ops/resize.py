@@ -1,4 +1,4 @@
-"""Corner-aligned nearest resize.
+"""Corner-aligned nearest resize, and the 'linear' resize of jax.image.
 
 torch's F.interpolate(mode='nearest') picks the source pixel at
 floor(i * in/out) (top-left alignment); optional H/W flips select which
@@ -45,3 +45,32 @@ def nearest_resize(x: torch.Tensor, size, bottom: bool = False,
     rows = _device_indices(H_in, H_out, bottom, str(x.device))
     cols = _device_indices(W_in, W_out, right, str(x.device))
     return x.index_select(-2, rows).index_select(-1, cols)
+
+
+def linear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) float32 weights of a 'linear' resize along one
+    axis, the triangle kernel of ``jax.image.resize(method='linear')``:
+    half-pixel centres, the kernel widened by in/out when shrinking (it
+    antialiases), each output's weights summed to 1 over the input."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))  # jax's rounding
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5))
+              * inv_scale - np.float32(0.5))
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None])
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+
+
+def linear_resize(x: torch.Tensor, size) -> torch.Tensor:
+    """Resize the last two axes of `x` to `size` = (H, W) as
+    ``jax.image.resize(..., method='linear')`` does: separable products with
+    ``linear_weights`` (``F.interpolate`` neither antialiases the same way
+    nor normalises at the borders as it does)."""
+    wh = torch.from_numpy(linear_weights(x.shape[-2], int(size[0])))
+    ww = torch.from_numpy(linear_weights(x.shape[-1], int(size[1])))
+    wh, ww = wh.to(x.device, x.dtype), ww.to(x.device, x.dtype)
+    return torch.einsum("...hw,hi,wj->...ij", x, wh, ww)

@@ -47,7 +47,9 @@ def report():
 def test_the_walk_finds_the_new_modules():
     assert "elasticdiffusion_tpu_torch.kernels.conv3x3" in MODULES
     assert "elasticdiffusion_tpu_torch.models.registry" in MODULES
-    assert len(MODULES) >= 29
+    for name in ("models.controlnet", "models.dpt", "apps.preprocessors"):
+        assert f"elasticdiffusion_tpu_torch.{name}" in MODULES
+    assert len(MODULES) >= 33
 
 
 @pytest.mark.parametrize("name", TARGETS)

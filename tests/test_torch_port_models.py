@@ -150,11 +150,17 @@ def test_bundle_entry_points_and_device_rule():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg)
-    for kwargs, item in ((dict(checkpoint_dir="/nowhere"), "checkpoints"),
-                         (dict(controlnet_model="canny"), "ControlNet")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg,
-                        device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg,
+                    device="cpu", checkpoint_dir="/nowhere")
+    # a ControlNet bundle: the other models' weights do not depend on it
+    plain = load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg,
+                        device="cpu", seed=1)
+    cn = load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg,
+                     device="cpu", seed=1, controlnet_model="canny")
+    assert plain.controlnet is None and cn.controlnet is not None
+    for a, b in zip(plain.unet.parameters(), cn.unet.parameters()):
+        assert torch.equal(a, b)
     # SDXL builds like the others: on the default device, which is absent here
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

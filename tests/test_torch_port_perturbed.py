@@ -26,18 +26,11 @@ import torch
 from elasticdiffusion_tpu_torch.models.convert import (
     clip_from_jax, unet_from_jax, vae_from_jax)
 from elasticdiffusion_tpu_torch.models.registry import load_bundle
-from torch_port_common import (TORCH_TOY_RUNTIME, max_abs, pipeline_parity_run,
-                               port_bundle_config, t2n, to_numpy_tree,
+from torch_port_common import (TORCH_TOY_RUNTIME, max_abs, perturb_tree,
+                               pipeline_parity_run, port_bundle_config, t2n,
                                toy_bundles)
 
 TOL = 3e-5
-
-
-def _perturb(tree, rng):
-    leaves, treedef = jax.tree.flatten(to_numpy_tree(tree))
-    return jax.tree.unflatten(treedef, [
-        l + 0.1 * rng.standard_normal(l.shape).astype(np.float32)
-        for l in leaves])
 
 
 @functools.lru_cache(maxsize=2)
@@ -46,9 +39,9 @@ def _perturbed_params(xl: bool):
     toy bundle loaded with the same trees."""
     jb, _ = toy_bundles(xl)
     rng = np.random.default_rng(11 if xl else 10)
-    unet = _perturb(jb.unet_params, rng)
-    vae = _perturb(jb.vae_params, rng)
-    text = tuple(_perturb(p, rng) for p in jb.text_params)
+    unet = perturb_tree(jb.unet_params, rng)
+    vae = perturb_tree(jb.vae_params, rng)
+    text = tuple(perturb_tree(p, rng) for p in jb.text_params)
     tp = load_bundle(jb.config.sd_version, TORCH_TOY_RUNTIME,
                      bundle_config=port_bundle_config(jb.config), device="cpu")
     tp.unet.load_state_dict(unet_from_jax(unet))

@@ -118,11 +118,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(condition_image=np.zeros((3, 8, 8), np.float32)),
     dict(tiled_decoder=True),
     dict(checkpoint_path="latent.npz"),
     dict(resume_from="latent.npz"),
-], ids=["condition_image", "tiled_decoder", "checkpoint_path", "resume_from"])
+], ids=["tiled_decoder", "checkpoint_path", "resume_from"])
 def test_later_slices_raise_not_implemented(kwargs):
     _, tb = toy_bundles()
     tp = TElastic(bundle=tb, device="cpu")
@@ -132,13 +131,14 @@ def test_later_slices_raise_not_implemented(kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
-                                    dict(controlnet_model="canny"),
-                                    dict(low_vram=True)],
-                         ids=["mesh", "controlnet_model", "low_vram"])
+                                    dict(low_vram=True),
+                                    dict(bundle=None, sd_version="1.5",
+                                         checkpoint_dir="/nowhere")],
+                         ids=["mesh", "low_vram", "checkpoint_dir"])
 def test_later_slices_raise_in_constructor(kwargs):
     _, tb = toy_bundles()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TElastic(bundle=tb, device="cpu", **kwargs)
+        TElastic(**{"bundle": tb, "device": "cpu", **kwargs})
     with pytest.raises(ValueError, match="divisible"):
         TElastic(bundle=tb, device="cpu").generate_image("x", height=33, width=48)
 
