@@ -8,6 +8,11 @@
     python3 chip_smoke.py --phases device,build,kernels --cases 'conv3x3/sd15'
                                               # only the kernel cases whose
                                               # name matches a regex
+    python3 chip_smoke.py --phases device,build,kernels,decode --paths sdxl \
+        --cases 'group_norm_|vae_' --chunk-budgets 67108864,268435456
+                                              # the decode routes, and the
+                                              # streamed one at other slab
+                                              # budgets
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -31,7 +36,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
             SDXL 1.0 and SD 1.5 with conv_impl='kernel', SD 2.1 with the
             default conv_impl='cudnn', and ControlNet text2img on SDXL 1.0
             (canny) and SD 1.5 (depth, through the port's DPT-large), both
-            with conv_impl='kernel'; launch counts are set to 0 just before
+            with conv_impl='kernel'. SDXL also answers 2048x2048 px (16
+            views in one batch) with tiled_decoder=True; SD 2.1 768x768 px
+            with the overlap-averaged tiles of a low_vram pipe (their mean
+            absolute difference from the monolithic decode is printed); SD
+            1.5 runs its first request again cut after two steps with
+            checkpoint_every=2 and resumes from the file, and fails unless
+            the final latent is the uninterrupted run's (rel L2 within
+            RESUME_TOL_REL_L2). Launch counts are set to 0 just before
             each path and read just after; `unchecked_launches` lists the
             shapes a path launched that the kernels phase did not check, and
             any shape among them fails the run. Then the path's first request
@@ -41,6 +53,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
             be the same. A ControlNet path also fails when the RMS of the
             ControlNet's mid residual or first down residual is 0 at the
             first step of its first request
+  decode    on the SDXL bundle one latent at 256x256 (2048x2048 px, fp32)
+            and on the SD 2.1 bundle one at 96x96 (bf16), each through
+            decode_latents, halo_decode(streamed=False) and
+            halo_decode(streamed=True): seconds, CUDA-event ms, peak bytes,
+            the branch halo_decode's default choice takes there, launches
+            checked as for a path; fails when a halo route is further than
+            DECODE_TOL_REL_L2 from decode_latents
 
 Every bundle's biases and norm weights (the ControlNet's and the DPT's
 too) are moved off their seeded init (`perturb_bundle`) as soon as it
@@ -72,7 +91,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-ALL_PHASES = ("device", "build", "kernels", "model", "requests")
+ALL_PHASES = ("device", "build", "kernels", "model", "requests", "decode")
 
 
 LOG_PATH = None  # --log: every emitted line is also appended to this file
@@ -194,14 +213,23 @@ def attention_cases():
         for B in (8, 2, 3, 9):
             cases.append(("self", bf, B, S, S, H, D))
             cases.append(("cross", bf, B, S, 77, H, D))
+    # the SDXL 2048x2048 request runs its 16 views in one batch
+    for S, H, D in ((4096, 10, 64), (1024, 20, 64)):
+        cases.append(("self", bf, 16, S, S, H, D))
+        cases.append(("cross", bf, 16, S, 77, H, D))
     cases.append(("vae_mid", bf, 1, 6144, 6144, 1, 512))
     cases.append(("vae_mid", bf, 1, 9216, 9216, 1, 512))
+    # SD 2.1's low_vram tiles (48x48 latents) and decodes at 768x768 px
+    cases.append(("vae_mid", bf, 1, 2304, 2304, 1, 512))
     cases.append(("vae_mid", f32, 1, 4096, 4096, 1, 512))
     cases.append(("vae_strip", f32, 1, 704, 704, 1, 512))
     # SDXL decodes in fp32 (force_upcast): 1024x1536 px is 128x192 tokens,
     # 1536x1536 px 192x192; its background strips encode at 21 and 22 rows
     cases.append(("vae_mid", f32, 1, 24576, 24576, 1, 512))
     cases.append(("vae_mid", f32, 1, 36864, 36864, 1, 512))
+    # SDXL at 2048x2048 px: 256x256 tokens (its plain version runs in query
+    # blocks: the whole logit matrix would take 17 GB)
+    cases.append(("vae_mid", f32, 1, 65536, 65536, 1, 512))
     cases.append(("vae_strip", f32, 1, 2688, 2688, 1, 512))
     cases.append(("vae_strip", f32, 1, 2816, 2816, 1, 512))
     for D in (40, 80, 160):  # the fp32 instantiations, on no path today
@@ -244,7 +272,9 @@ def run_attention(gen, results):
                        for S in (Sq, Sk, Sk))
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
-        ref = reference_attention(q, k, v)
+        plain = (lambda: blocked_reference_attention(q, k, v)) \
+            if Sq * Sk > PLAIN_LOGITS else (lambda: reference_attention(q, k, v))
+        ref = plain()
         max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
         isz = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz
@@ -252,7 +282,7 @@ def run_attention(gen, results):
         b_ms, b_by = bound(nbytes, ops, dtype)
         reps = (1, 5) if b_ms > 5.0 else (3, 15)  # the long fp32 decodes
         ms = time_ms(lambda: flash_attention(q, k, v), *reps)
-        plain_ms = time_ms(lambda: reference_attention(q, k, v), 1, 5)
+        plain_ms = time_ms(plain, 1, 5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                          *reps)
@@ -275,9 +305,28 @@ def run_attention(gen, results):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
             "device_ms": device_ms, "library_device_ms": lib_device_ms,
-            "library": "F.scaled_dot_product_attention"})
+            "library": "F.scaled_dot_product_attention",
+            "plain": "reference_attention" + (
+                f" in query blocks of {PLAIN_LOGITS // Sk}"
+                if Sq * Sk > PLAIN_LOGITS else "")})
         del q, k, v, out, ref
         torch.cuda.empty_cache()
+
+
+# logits (query rows x keys) the plain attention takes in one piece; longer
+# inputs are compared in blocks of query rows
+PLAIN_LOGITS = 1 << 29
+
+
+def blocked_reference_attention(q, k, v):
+    """reference_attention over blocks of query rows: each row's softmax
+    sees every key, so the result is the whole call's; the logits of one
+    block stay within PLAIN_LOGITS elements."""
+    from elasticdiffusion_tpu_torch.kernels.flash_attention import (
+        reference_attention)
+    n = max(1, PLAIN_LOGITS // k.shape[1])
+    return torch.cat([reference_attention(q[:, i:i + n], k, v)
+                      for i in range(0, q.shape[1], n)], dim=1)
 
 
 def attention_host_us(gen):
@@ -302,12 +351,12 @@ def attention_host_us(gen):
 def layernorm_cases():
     """(tag, dtype, weight dtype, eps, N, C) of every LayerNorm the paths
     launch: the UNet transformer blocks (tokens x width, times the batches
-    the requests give: 8, 2, 3 and 9 as for attention; SD 1.5's 512x768
-    request has 3 views) and the text encoders' 77 tokens. Both keep their
+    the requests give: 8, 2, 3 and 9 as for attention, 16 for SDXL at
+    2048x2048; SD 1.5's 512x768 request has 3 views) and the text encoders' 77 tokens. Both keep their
     weights in the bf16 parameter dtype and use eps 1e-5 (LayerNorm32's
     default, CLIPTextConfig.layer_norm_eps). Every case is timed in full."""
     bf = torch.bfloat16
-    unet = (("sdxl", ((4096, 640), (1024, 1280)), (8, 2, 3, 9)),
+    unet = (("sdxl", ((4096, 640), (1024, 1280)), (8, 2, 3, 9, 16)),
             ("sd15", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
              (8, 2, 3)),
             ("sd21", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
@@ -362,15 +411,16 @@ def norm_times(kernel, plain, lib, full: bool) -> dict:
     """Times of one norm case. Every case: event ms of the kernel, the
     plain version and the library call, and the kernel's device time
     replayed from a CUDA graph; `full` cases take more samples and the
-    library's device time too."""
+    library's device time too. `lib` None: no one PyTorch call computes the
+    same function."""
     reps = (3, 15) if full else (1, 3)
     out = {"ms": time_ms(kernel, *reps),
            "plain_ms": time_ms(plain, 1, 5 if full else 1),
-           "library_ms": time_ms(lib, *reps)}
+           "library_ms": None if lib is None else time_ms(lib, *reps)}
     # about 2 ms of launches a replay
     n = max(1, min(20, int(2.0 / out["ms"])))
     out["device_ms"] = graph_ms(kernel, n, 5 if full else 3)
-    out["library_device_ms"] = graph_ms(lib, n) if full else None
+    out["library_device_ms"] = graph_ms(lib, n) if full and lib else None
     return out
 
 
@@ -379,7 +429,7 @@ def groupnorm_cases():
     GroupNorm the paths launch, with the weight dtype and eps of the module
     that launches it: the UNet's ResNet norms (SiLU, eps 1e-5) and
     Transformer2D norms (no SiLU, eps 1e-6), bf16 weights, at the batches
-    the requests give; the VAE decoders (bf16 activations with the fp32 norm
+    the requests give (16: the SDXL 2048x2048 request's views); the VAE decoders (bf16 activations with the fp32 norm
     weights of the compute copy for SD 1.x / 2.x, fp32 for the SDXL
     force_upcast decode) and the fp32 background-strip encodes, all eps 1e-6.
     `full` (timed in full): batch 8, and every VAE shape."""
@@ -403,7 +453,7 @@ def groupnorm_cases():
             cases.append((tag, dtype, w_dtype, eps, B, H, W, C, silu,
                           B == 1 or B == 8))
 
-    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9)),
+    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9, 16)),
                                  ("sd15", sd, (8, 2, 3)),
                                  ("sd21", sd, (8, 2, 3, 9))):
         for S, C, silu in shapes:
@@ -411,9 +461,10 @@ def groupnorm_cases():
                 add(tag, bf, bf, 1e-5 if silu else 1e-6, B, S, S, C, silu)
     # decoders at latent (h, w): mid block (and its attention's norm), the
     # four up blocks, norm_out. SD 1.x / 2.x bf16 at 512x768 and 768x768
-    # px; SDXL fp32 at 1024x1536 and 1536x1536 px
-    for dtype, latents in ((bf, ((64, 96), (96, 96))),
-                           (f32, ((128, 192), (192, 192)))):
+    # px and SD 2.1's low_vram tiles (48x48 latents); SDXL fp32 at
+    # 1024x1536, 1536x1536 and 2048x2048 px
+    for dtype, latents in ((bf, ((64, 96), (96, 96), (48, 48))),
+                           (f32, ((128, 192), (192, 192), (256, 256)))):
         for h, w in latents:
             for k, C, silu in ((1, 512, F_), (1, 512, T), (2, 512, T),
                                (4, 512, T), (4, 256, T), (8, 256, T),
@@ -512,6 +563,78 @@ def run_groupnorm(gen, results):
             torch.cuda.empty_cache()
 
 
+
+
+def halves_cases():
+    """(half, dtype, B, H, W, C) of every launch of group_norm_sums and
+    group_norm_apply (SiLU: every apply of the decoder is followed by one)
+    in the streamed decodes of the decode phase (the paths' "decode"
+    latents), in the VAE's decode dtype, from
+    parallel/halo_decode.py's own enumeration; the decode phase confirms
+    them against its launch log."""
+    from elasticdiffusion_tpu_torch.configs import get_bundle_config
+    from elasticdiffusion_tpu_torch.parallel.halo_decode import (
+        streamed_norm_shapes)
+    cases = []
+    for version, (h, w) in ((p["sd_version"], p["decode"]) for p in PATHS
+                            if "decode" in p):
+        cfg = get_bundle_config(version).vae
+        dtype = torch.float32 if cfg.force_upcast else torch.bfloat16
+        for half, shape, _ in streamed_norm_shapes(cfg, 1, h, w):
+            if (half, dtype) + shape not in cases:
+                cases.append((half, dtype) + shape)
+    return cases
+
+
+def run_halves(gen, results):
+    """The two halves of the GroupNorm kernel against their plain versions
+    at every shape the streamed decodes launch."""
+    from elasticdiffusion_tpu_torch.kernels.groupnorm import (
+        group_norm_apply, group_norm_sums, reference_group_norm_apply,
+        reference_group_norm_sums)
+    for half, dtype, B, H, W, C in halves_cases():
+        name = f"group_norm_{half}/vae_{str(dtype)[6:]}_{B}x{H}x{W}x{C}"
+        if not wanted(name):
+            continue
+        x = (torch.randn(B, H, W, C, generator=gen, device="cuda") * 1.5
+             + 0.3).to(dtype)
+        if half == "sums":
+            kernel = lambda: group_norm_sums(x)
+            plain = lambda: reference_group_norm_sums(x)
+            nbytes = x.numel() * x.element_size() + 2 * B * C * 4
+            ops, key = 3.0 * x.numel(), ("group_norm_sums", str(dtype), B, H, W, C)
+        else:
+            sc = 1 + 0.1 * torch.randn(B, C, generator=gen, device="cuda")
+            sh = 0.1 * torch.randn(B, C, generator=gen, device="cuda")
+            kernel = lambda: group_norm_apply(x, sc, sh, True)
+            plain = lambda: reference_group_norm_apply(x, sc, sh, True)
+            nbytes = 2 * x.numel() * x.element_size() + 2 * B * C * 4
+            ops = 6.0 * x.numel()
+            key = ("group_norm_apply", str(dtype), str(torch.float32), B, H,
+                   W, C, True)
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
+        if half == "sums":
+            why += ("; the kernel sums each channel over row chunks and then "
+                    "the chunks, the plain version in torch's order")
+        b_ms, b_by = bound(nbytes, ops, torch.float32)
+        results.append({
+            "name": name, "kernel": f"group_norm_{half}", "route": "cuda",
+            "source": "elasticdiffusion_tpu_torch/kernels/csrc/groupnorm.cu",
+            "replaces": "elasticdiffusion_tpu/kernels/groupnorm.py:"
+                        + ("94" if half == "sums" else "119"),
+            "log_key": key, "body": "gn_stats" if half == "sums" else "gn_apply",
+            "max_abs_err": max_abs, "rel_l2_err": rel_l2,
+            "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
+            "bound_ms": b_ms, "bound_by": b_by, "library": None,
+            **norm_times(kernel, plain, None, True)})
+        del x, out, ref
+        if nbytes > (256 << 20):
+            torch.cuda.empty_cache()
+
+
 def conv_cases():
     """(tag, dtype, B, H, W, C, O, silu, bias dtype or None)."""
     bf, f32 = torch.bfloat16, torch.float32
@@ -528,8 +651,8 @@ def conv_cases():
     # the batches the requests give the UNet: 8 (resampled direction
     # forwards and the model check), 2 (cond/uncond direction forwards), 3
     # and 9 (the view batches of a 2:3 and a square SDXL image; SD 1.5's
-    # 512x768 request has 3 views)
-    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9)),
+    # 512x768 request has 3 views), 16 (the SDXL 2048x2048 request's views)
+    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9, 16)),
                                  ("sd15", sd15, (8, 2, 3))):
         for S, C, O in shapes:
             for B in batches:
@@ -621,6 +744,7 @@ def phase_kernels():
     run_attention(gen, results)
     run_layernorm(gen, results)
     run_groupnorm(gen, results)
+    run_halves(gen, results)
     run_conv3x3(gen, results)
     bad = [r["name"] for r in results
            if not (r["max_abs_err"] <= r["tol_abs"]
@@ -648,15 +772,24 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 # the paths of the requests phase: bundle, conv_impl, latent of the batch-8
 # model check (none: no model check), ControlNet, requests
 PATHS = (
+    # SDXL: the reference's largest size (2048x2048 px, 16 views in one
+    # batch) through tiled_decoder=True; its decode phase at that size
     {"name": "sdxl", "sd_version": "XL1.0", "conv_impl": "kernel",
-     "latent": 128,
+     "latent": 128, "decode": (256, 256),
      "requests": ({"height": 1024, "width": 1536},
-                  {"height": 1536, "width": 1536})},
+                  {"height": 1536, "width": 1536},
+                  {"height": 2048, "width": 2048, "tiled_decoder": True})},
+    # SD 1.5: its first request also runs cut after two steps with
+    # checkpoint_every=2, then resumed from the file
     {"name": "sd15", "sd_version": "1.5", "conv_impl": "kernel", "latent": 64,
-     "requests": ({"height": 512, "width": 768},)},
+     "resume": True, "requests": ({"height": 512, "width": 768},)},
+    # SD 2.1: the overlap-averaged tiles of a low_vram pipe at 768x768
     {"name": "sd21", "sd_version": "2.1", "conv_impl": "cudnn", "latent": 64,
+     "decode": (96, 96),
      "requests": ({"height": 512, "width": 768},
-                  {"height": 768, "width": 768})},
+                  {"height": 768, "width": 768},
+                  {"height": 768, "width": 768, "tiled_decoder": True,
+                   "pipe": {"low_vram": True, "use_halo_decode": False}})},
     # ControlNet text2img: the condition of each request is a seeded image of
     # shapes on a background through the port's preprocessors. The SDXL
     # ControlNet gets its own batch-8 model check; the SD 1.5 one none (its
@@ -781,12 +914,17 @@ def phase_controlnet_model(bundle, path):
 
 
 def kernel_counts():
+    """Every kernel wrapper by name; the GroupNorm kernel's two halves
+    launch only in a streamed decode."""
     from elasticdiffusion_tpu_torch.kernels.conv3x3 import conv3x3
     from elasticdiffusion_tpu_torch.kernels.flash_attention import flash_attention
-    from elasticdiffusion_tpu_torch.kernels.groupnorm import fused_group_norm
+    from elasticdiffusion_tpu_torch.kernels.groupnorm import (
+        fused_group_norm, group_norm_apply, group_norm_sums)
     from elasticdiffusion_tpu_torch.kernels.layernorm import fused_layer_norm
     return {"flash_attention": flash_attention, "fused_layer_norm": fused_layer_norm,
-            "fused_group_norm": fused_group_norm, "conv3x3": conv3x3}
+            "fused_group_norm": fused_group_norm, "conv3x3": conv3x3,
+            "group_norm_sums": group_norm_sums,
+            "group_norm_apply": group_norm_apply}
 
 
 def plain_cuda_counts():
@@ -935,17 +1073,64 @@ def condition_images(path, seed: int) -> list:
 
 
 def generate(pipe, path, req, steps: int, resampling: int, seed: int,
-             condition=None):
-    """One request of a path from a seed; (images, info, generator states)."""
+             condition=None, **extra):
+    """One request of a path from a seed; (images, info, generator states).
+    `extra` goes to generate_image (checkpoint and resume arguments)."""
     pipe.seed_everything(seed)
-    extra = {} if condition is None else {"condition_image": condition}
+    if condition is not None:
+        extra["condition_image"] = condition
+    kw = {k: v for k, v in req.items() if k != "pipe"}
     with record_generators() as rec:
         imgs, info = pipe.generate_image(
             "a photo of a lighthouse on a cliff at dusk", negative_prompts="",
             num_inference_steps=steps, resampling_steps=resampling,
-            repaint_sampling=True, return_arrays=True, **req, **extra)
+            repaint_sampling=True, return_arrays=True, **kw, **extra)
     torch.cuda.synchronize()
     return imgs, info, rec.states()
+
+
+def request_pipe(pipe, req):
+    """The pipe a request runs on: the path's, or for a request with
+    "pipe" options (low_vram, use_halo_decode) one built with them on the
+    same bundle."""
+    opts = req.get("pipe")
+    if not opts:
+        return pipe
+    from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
+    other = ElasticDiffusion(device="cuda", bundle=pipe.bundle,
+                             low_vram=opts.get("low_vram", False))
+    other.use_halo_decode = opts.get("use_halo_decode", True)
+    return other
+
+
+# A run resumed from a latent checkpoint against the same run uninterrupted:
+# the same kernels on the same inputs in the same order
+RESUME_TOL_REL_L2 = 1e-6
+
+
+def resume_check(pipe, path, steps: int, resampling: int, first) -> dict:
+    """The path's first request again with checkpoint_every=2, cut after
+    its second step (a progress wrapper ends the loop there, as an
+    interrupted run would), then resumed from its checkpoint file: its final
+    latent against the uninterrupted run's (`first`)."""
+    import itertools
+    import tempfile
+
+    import numpy as np
+    req = path["requests"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = f"{tmp}/latent.npz"
+        generate(pipe, path, req, steps, resampling, 0, checkpoint_path=ck,
+                 checkpoint_every=2,
+                 progress=lambda it: itertools.islice(it, 2))
+        saved_step = int(np.load(ck)["step"])
+        _, info, _ = generate(pipe, path, req, steps, resampling, 0,
+                              resume_from=ck)
+    a = torch.as_tensor(info["latent"]).float()
+    b = torch.as_tensor(first["latent"]).float()
+    return {"request": req, "checkpoint_every": 2, "saved_step": saved_step,
+            "rel_l2": rel_l2(a, b), "bitwise_equal": bool(torch.equal(a, b)),
+            "tolerance_rel_l2": RESUME_TOL_REL_L2}
 
 
 def end_to_end(pipe, path, steps: int, resampling: int, kernel_run,
@@ -1026,9 +1211,10 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     answers, first = [], None
     for i, req in enumerate(path["requests"]):
         before = {n: w.launches for n, w in wrappers.items()}
+        rpipe = request_pipe(pipe, req)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        imgs, info, states = generate(pipe, path, req, steps, resampling, i,
+        imgs, info, states = generate(rpipe, path, req, steps, resampling, i,
                                       conditions[i])
         wall = time.time() - t0
         if i == 0:
@@ -1042,7 +1228,15 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
                         "std": float(imgs.std()), "launches": launched,
                         "wall_seconds": wall,
                         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                        "last_metrics": pipe.last_metrics})
+                        "last_metrics": rpipe.last_metrics})
+        if req.get("tiled_decoder") and not rpipe.use_halo_decode:
+            # the overlap average is an approximation: reported, not gated
+            mono = rpipe.decode_latents(torch.as_tensor(info["latent"],
+                                                        device="cuda"))
+            answers[-1]["tiled_vs_monolithic_mean_abs"] = (
+                mono.cpu() - torch.as_tensor(imgs)).abs().mean().item()
+            del mono
+        del rpipe
         if not ok_shape:
             fail(f"{path['name']} {req}: image shape {tuple(imgs.shape)}")
         if not finite or lo < 0.0 or hi > 1.0:
@@ -1050,9 +1244,12 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         if not hi > lo:
             fail(f"{path['name']} {req}: image is constant")
         never = [n for n, c in launched.items()
-                 if c == 0 and (conv_on or n != "conv3x3")]
+                 if c == 0 and (conv_on or n != "conv3x3")
+                 and not n.startswith("group_norm_")]
         if never:
             fail(f"{path['name']} {req}: never launched: {never}")
+    resume = resume_check(pipe, path, steps, resampling, first[0]) \
+        if path.get("resume") else None
     for h in hooks:
         h.remove()
     log = kernels.launch_log
@@ -1084,12 +1281,16 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "conv3x3_operand_copies": wrappers["conv3x3"].copies,
           "cudnn_calls_in_gate": cudnn_in_gate,
           "group_norm_operand_copies": gn_copies,
-          "unchecked_launches": unchecked, "end_to_end": e2e})
+          "unchecked_launches": unchecked, "end_to_end": e2e,
+          "resume": resume})
     if unchecked:
         fail(f"{path['name']}: kernels launched at shapes that no kernel case "
              f"checks: {sorted(unchecked)}")
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
+    if resume is not None and not resume["rel_l2"] <= RESUME_TOL_REL_L2:
+        fail(f"{path['name']}: the resumed run's final latent differs from "
+             f"the uninterrupted run's: {resume}")
     if not (e2e["finite"] and e2e["same_random_draws"]
             and e2e["rel_l2"] <= E2E_TOL_REL_L2):
         fail(f"{path['name']}: kernels against plain versions end to end: "
@@ -1114,6 +1315,131 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     return log, totals
 
 
+# The streamed and halo routes against decode_latents on the same latent:
+# fp32 (SDXL, TF32 off) differs only in the order of sums; bf16 (SD 2.1)
+# rounds the windows' normalised activations and conv outputs to bf16 at
+# other places than the monolithic modules do
+DECODE_TOL_REL_L2 = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def event_ms(fn):
+    """(result, seconds on the host clock to the end of a synchronise,
+    milliseconds between CUDA events around the call)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, a.elapsed_time(b)
+
+
+def phase_decode(bundle, path, checked=None, chunk_budgets=()):
+    """One latent of the path's "decode" size through three routes:
+    decode_latents (the modules), halo_decode(streamed=False) and
+    halo_decode(streamed=True); per route seconds, CUDA-event ms and peak
+    bytes (each route runs once before it is measured), its rel L2 against
+    decode_latents, and the branch halo_decode's default choice takes at
+    that size. Launch counts are set to 0 just before and read just after,
+    as for a path of the requests phase. `chunk_budgets`: the streamed
+    route again at each slab budget (bytes), after the counts are read."""
+    import elasticdiffusion_tpu_torch.kernels as kernels
+    from elasticdiffusion_tpu_torch.parallel import halo_decode as hd
+    h, w = path["decode"]
+    vsf = bundle.vae_scale_factor
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # a latent at the scale of a denoised one, already / scaling_factor
+    z = torch.randn(1, 4, h, w, generator=gen, device="cuda") * 5.0
+    dtype = torch.float32 if bundle.fp32_decode else bundle.vae.dtype
+    routes = {"decode_latents": lambda: bundle.vae_decode(z),
+              "halo_monolithic": lambda: hd.halo_decode(bundle, z,
+                                                        streamed=False),
+              "halo_streamed": lambda: hd.halo_decode(bundle, z,
+                                                      streamed=True)}
+    wrappers, plain = kernel_counts(), plain_cuda_counts()
+    for wr in wrappers.values():
+        wr.launches = 0
+    wrappers["fused_group_norm"].copies = 0
+    for d in plain.values():
+        d.plain_cuda_calls = 0
+    kernels.launch_log = collections.Counter()
+    out, ref = {}, None
+    for name, fn in routes.items():
+        fn()  # cuDNN's and the allocator's first-call set-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        img, sec, ms = event_ms(fn)
+        peak = torch.cuda.max_memory_allocated()
+        if not torch.isfinite(img.float()).all():
+            fail(f"{path['name']} decode {name}: not finite")
+        if ref is None:
+            ref = img
+        out[name] = {"seconds": sec, "event_ms": ms, "peak_bytes": peak,
+                     "peak_above_resident": peak - resident,
+                     "peak_above_resident_per_px":
+                         (peak - resident) / (h * vsf * w * vsf),
+                     "rel_l2": rel_l2(img, ref),
+                     "max_abs": (img.float() - ref.float()).abs().max().item(),
+                     "shape": list(img.shape)}
+        del img
+    log = kernels.launch_log
+    kernels.launch_log = None
+    totals = {n: wr.launches for n, wr in wrappers.items()}
+    plain_calls = {n: d.plain_cuda_calls for n, d in plain.items()}
+    sweep, default_chunk = {}, hd.CHUNK_BYTES
+    for budget in chunk_budgets:
+        hd.CHUNK_BYTES = budget
+        try:
+            hd.halo_decode(bundle, z, streamed=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            img, sec, ms = event_ms(lambda: hd.halo_decode(bundle, z,
+                                                           streamed=True))
+        finally:
+            hd.CHUNK_BYTES = default_chunk
+        sweep[str(budget)] = {
+            "seconds": sec, "event_ms": ms,
+            "peak_above_resident": torch.cuda.max_memory_allocated() - resident,
+            "rel_l2": rel_l2(img, ref)}
+        del img
+    unchecked = {} if checked is None else {
+        "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
+        if key not in checked}
+    tol = DECODE_TOL_REL_L2[dtype]
+    emit({"phase": "decode", "path": path["name"],
+          "sd_version": path["sd_version"], "latent": [h, w],
+          "pixels": h * vsf * w * vsf, "dtype": str(dtype), "routes": out,
+          "default_branch": hd.choose_branch(dtype, 1, h, w, vsf),
+          "max_px": hd.MAX_PX[dtype], "chunk_bytes": hd.CHUNK_BYTES,
+          "chunk_sweep": sweep, "tolerance_rel_l2": tol, "launches": totals,
+          "plain_versions_on_cuda": plain_calls,
+          "group_norm_operand_copies": wrappers["fused_group_norm"].copies,
+          "unchecked_launches": unchecked})
+    del ref, z
+    torch.cuda.empty_cache()
+    if unchecked:
+        fail(f"{path['name']} decode: kernels launched at shapes that no "
+             f"kernel case checks: {sorted(unchecked)}")
+    if any(plain_calls.values()):
+        fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
+    never = [n for n in ("flash_attention", "fused_group_norm",
+                         "group_norm_sums", "group_norm_apply")
+             if totals[n] == 0]
+    if never:
+        fail(f"{path['name']} decode: never launched: {never}")
+    for name in ("halo_monolithic", "halo_streamed"):
+        if not out[name]["rel_l2"] <= tol:
+            fail(f"{path['name']} decode {name}: rel L2 {out[name]['rel_l2']} "
+                 f"against decode_latents, over {tol}")
+    return log, totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -1130,6 +1456,9 @@ def main(argv=None) -> int:
                     help="print nvcc's output (registers, spills)")
     ap.add_argument("--cases", default=None,
                     help="regex: run only the kernel cases whose name matches")
+    ap.add_argument("--chunk-budgets", default="",
+                    help="comma-separated slab budgets (bytes) at which the "
+                         "decode phase also times the streamed route")
     opt = ap.parse_args(argv)
     global LOG_PATH, CASES
     LOG_PATH = opt.log
@@ -1171,7 +1500,8 @@ def main(argv=None) -> int:
     checked = {r["log_key"] for r in cases} if "kernels" in phases else None
 
     logs, totals = {}, collections.Counter()
-    if "model" in phases or "requests" in phases:
+    budgets = [int(float(b)) for b in opt.chunk_budgets.split(",") if b]
+    if {"model", "requests", "decode"} & set(phases):
         from elasticdiffusion_tpu_torch.configs import RuntimeConfig
         from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
         from elasticdiffusion_tpu_torch.models.registry import load_bundle
@@ -1204,6 +1534,10 @@ def main(argv=None) -> int:
                     pipe, path, opt.steps, opt.resampling_steps, checked)
                 totals.update(t)
                 del pipe
+            if "decode" in phases and "decode" in path:
+                logs[path["name"] + "_decode"], t = phase_decode(
+                    bundle, path, checked, budgets)
+                totals.update(t)
             # one bundle at a time on the card
             del bundle
             gc.collect()
@@ -1230,7 +1564,7 @@ def main(argv=None) -> int:
                           "library_device_ms", "tflops"):
                 if extra in r:
                     listed[-1][extra] = r[extra]
-        for kernel in totals:
+        for kernel in (k for k, n in totals.items() if n):
             if not any(e["name"].startswith(kernel + "/") for e in listed):
                 fail(f"{kernel}: none of the checked shapes ran on a main path")
         # what each kernel loses on the main paths: launches x (device ms -
@@ -1247,7 +1581,8 @@ def main(argv=None) -> int:
     emit({"phase": "total", "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": listed})
-    if (set(phases) != set(ALL_PHASES) or len(logs) != len(PATHS)
+    runs = len(PATHS) + sum("decode" in p for p in PATHS)
+    if (set(phases) != set(ALL_PHASES) or len(logs) != runs
             or CASES is not None):
         # a partial run is a tool for development, never the proof
         print(json.dumps({"ok": False, "partial": phases,

@@ -10,6 +10,13 @@ residuals. PyTorch runs eagerly, so the step is a plain
 method and the timestep loop a Python loop; per-step constants (DDIM
 coefficients, RRG weights, background tables) are computed before the loop.
 
+The final decode is monolithic (``decode_latents``), or with
+``tiled_decoder=True`` the exact halo decode of ``parallel/halo_decode.py``
+(``halo_decode``) or, with ``use_halo_decode = False``, the reference's
+overlap-averaged tiles (``tiled_decode``). ``checkpoint_path`` /
+``checkpoint_every`` save the latent, the step and the step generator's
+state to an ``.npz`` file, and ``resume_from`` continues from one.
+
 Runs on the GPU unless the caller passes ``device="cpu"``. Arguments that
 belong to a slice not ported yet raise ``NotImplementedError``.
 """
@@ -27,11 +34,12 @@ from ..configs import RuntimeConfig, ViewConfig
 from ..models.registry import ModelBundle, load_bundle, resolve_device
 from ..ops.resample import build_resample_plan, get_downsample_size
 from ..ops.resize import nearest_resize
-from ..ops.views import build_view_plan
+from ..ops.views import build_view_plan, get_views_latent
 from ..sched.ddim import DDIMScheduler
 from ..sched.weight_schedulers import (CosineScheduler, make_rrg_scheduler,
                                        rrg_weight_table)
 from ..utils.image import make_grid, to_pil
+from ..utils.timeit import timelog
 from . import background, signals
 from .background import PadSpec
 
@@ -70,14 +78,49 @@ class _StepContext:
     controlnet_scale: float = 1.0
 
 
+@dataclass
+class _Schedule:
+    """The per-step constants of one generate_image call: DDIM timesteps
+    and coefficients, RRG weights, background tables and, when repainting,
+    the undo coefficients of every step but the last."""
+
+    state: Any
+    coeff_table: np.ndarray
+    rrg_w: np.ndarray
+    bg_down: Dict[str, torch.Tensor]
+    bg_view: Dict[str, torch.Tensor]
+    undo: list
+
+    def inputs(self, i: int) -> Tuple[Dict[str, Any], bool]:
+        """(inp of step i for ``_denoise_step``, whether it repaints). The
+        last step never repaints."""
+        inp = {"t": float(self.state.timesteps[i]),
+               "coeffs": self.coeff_table[i], "rrg_w": float(self.rrg_w[i]),
+               "bg_down": {s: tbl[i] for s, tbl in self.bg_down.items()},
+               "bg_view": {s: tbl[i] for s, tbl in self.bg_view.items()}}
+        repaint = i < len(self.undo)
+        if repaint:
+            inp["undo_s1mb"], inp["undo_sb"] = self.undo[i]
+        return inp, repaint
+
+
 class ElasticDiffusion:
     """The reference class's API on PyTorch.
 
     `view_batch_size` defaults to 0 = "all views in one batched call"; set
     0 < view_batch_size < num_views to chunk the view pass as a memory knob
     (the same numbers either way). The attribute may be changed between
-    calls.
+    calls, and so may `use_halo_decode` (True: ``tiled_decoder=True`` takes
+    the exact ``halo_decode``; False: the overlap-averaged
+    ``tiled_decode``).
+
+    `low_vram` makes ``tiled_decode``'s tiles overlap by half. The JAX
+    package's ``low_vram`` also rematerialises the UNet for a backward pass,
+    which changes nothing in an inference forward: the port has no knob for
+    it.
     """
+
+    use_halo_decode = True
 
     def __init__(self, device="cuda", sd_version: str = "2.0",
                  verbose: bool = False, log_freq: int = 5,
@@ -90,10 +133,8 @@ class ElasticDiffusion:
                  mesh=None):
         if mesh is not None:
             raise _later("a device mesh", "multi-GPU")
-        if low_vram:
-            raise _later("low_vram (it shapes the tiled decode)",
-                         "tiled and halo decode")
         self.sd_version = sd_version
+        self.low_vram = low_vram
         self.verbose = verbose
         self.log_freq = log_freq
         self.view_batch_size = view_batch_size
@@ -162,6 +203,41 @@ class ElasticDiffusion:
         img = self.bundle.vae_decode(
             latents.float() / self.bundle.config.vae.scaling_factor)
         return (img.float() / 2 + 0.5).clamp(0.0, 1.0)
+
+    def halo_decode(self, latents) -> torch.Tensor:
+        """The exact large-size decode (``parallel/halo_decode.py``):
+        monolithic or streamed stage b by its predictive choice; equal to
+        ``decode_latents`` up to the order of sums."""
+        from ..parallel.halo_decode import halo_decode
+        img = halo_decode(self.bundle, latents.float()
+                          / self.bundle.config.vae.scaling_factor)
+        return (img.float() / 2 + 0.5).clamp(0.0, 1.0)
+
+    def tiled_decode(self, latents) -> torch.Tensor:
+        """The reference's overlap-averaged tiled decode: the latent is
+        zero-padded, tiles of sample_size // 4 latent rows and columns
+        (with `pad` rows of context a side) are decoded one by one, and the
+        overlapping cores averaged. An approximation; ``halo_decode`` is
+        exact."""
+        B, _, lh, lw = latents.shape
+        vsf = self.vae_scale_factor
+        sample = self.bundle.sample_size
+        core = stride = sample // 4
+        pad = sample // vsf * 3
+        if self.low_vram:
+            stride, pad = core // 2, core
+        padded = torch.nn.functional.pad(latents, (pad, pad, pad, pad))
+        image = torch.zeros((B, 3, lh * vsf, lw * vsf), device=latents.device)
+        count = torch.zeros_like(image)
+        p = pad * vsf
+        for a, b, c, d in get_views_latent(lh, lw, core, core, stride):
+            dec = self.decode_latents(padded[:, :, a:b + 2 * pad, c:d + 2 * pad])
+            core_px = dec[:, :, p:dec.shape[2] - p, p:dec.shape[3] - p]
+            rows = slice(a * vsf, a * vsf + core_px.shape[2])
+            cols = slice(c * vsf, c * vsf + core_px.shape[3])
+            image[:, :, rows, cols] += core_px
+            count[:, :, rows, cols] += 1.0
+        return image / count
 
     # ------------------------------------------------------------------
     # vanilla sampling
@@ -254,6 +330,99 @@ class ElasticDiffusion:
                "init_downsampled_latent": res.init_downsampled_latent}
         return nxt, aux
 
+    def _context(self, prompts, negative_prompts, height: int, width: int,
+                 guidance_scale: float, resampling_steps: int, new_p: float,
+                 condition_image=None,
+                 controlnet_conditioning_scale: float = 1.0) -> _StepContext:
+        """What every step of one call shares: plans, pads, text
+        conditioning, the ControlNet condition and the step generator
+        (seeded from the base seed)."""
+        b = self.bundle
+        dev = self.device
+        B = len(prompts)
+        vsf = self.vae_scale_factor
+        if height % vsf or width % vsf:
+            raise ValueError(f"height {height} and width {width} must be "
+                             f"divisible by {vsf}")
+        lat_h, lat_w = height // vsf, width // vsf
+        down_h, down_w = self.get_downsample_size(height, width)
+
+        # static plans
+        resample_plan = build_resample_plan(lat_h, lat_w, down_h, down_w)
+        # the effective downsample can differ from the request at awkward ratios
+        down_h, down_w = resample_plan.out_h, resample_plan.out_w
+        view_plan = build_view_plan(lat_h, lat_w, self.view_config)
+        m = b.config.min_latent_size
+        V = view_plan.num_views
+        vbs = self.runtime.view_batch_size or self.view_batch_size
+
+        # text
+        uncond_text, uncond_pooled = self.get_text_embeds(negative_prompts)
+        cond_text, cond_pooled = self.get_text_embeds(prompts)
+        add_text_cfg = add_time_ids = uncond_pooled_arg = None
+        if b.config.is_xl:
+            add_text_cfg = torch.cat([uncond_pooled, cond_pooled])
+            # the reference's micro-conditioning quirk: original and target
+            # size are (4H, 4W), not the size asked for
+            default_size = (4 * height, 4 * width)
+            add_time_ids = self._get_add_time_ids(default_size, (0, 0),
+                                                  default_size)
+            uncond_pooled_arg = uncond_pooled
+
+        # ControlNet condition, at the downsampled size in pixels: the
+        # direction pads it, the local signal upsamples and crops it
+        cn_cond = None
+        if condition_image is not None:
+            if b.controlnet is None:
+                raise ValueError("condition_image needs a bundle with a "
+                                 "ControlNet (controlnet_model=...)")
+            cn_cond = torch.as_tensor(condition_image, dtype=torch.float32,
+                                      device=dev)
+            if cn_cond.dim() == 3:
+                cn_cond = cn_cond[None]
+            if cn_cond.shape[1] != 3 or cn_cond.shape[0] not in (1, B):
+                raise ValueError(f"condition must be (1|{B}, 3, h, w) in "
+                                 f"[0, 1], got {tuple(cn_cond.shape)}")
+            cn_cond = nearest_resize(cn_cond, (down_h * vsf, down_w * vsf))
+            cn_cond = cn_cond.expand(B, *cn_cond.shape[1:])
+
+        return _StepContext(
+            resample_plan=resample_plan, view_plan=view_plan,
+            down_pad=PadSpec(down_h, down_w, m, m),
+            view_pad=PadSpec(*view_plan.out_shape, m, m),
+            guidance_scale=guidance_scale, resampling_steps=resampling_steps,
+            drop_p=1 - new_p, view_chunk=vbs if vbs and vbs < V else 0,
+            text_cfg=torch.cat([uncond_text, cond_text]),
+            uncond_text=uncond_text,
+            generator=torch.Generator(device=dev).manual_seed(
+                _fold(self._seed, 3)),
+            add_text_cfg=add_text_cfg, uncond_pooled=uncond_pooled_arg,
+            add_time_ids=add_time_ids, controlnet_cond=cn_cond,
+            controlnet_scale=controlnet_conditioning_scale)
+
+    def _schedule(self, ctx: _StepContext, num_inference_steps: int,
+                  rrg_stop_t: float, rrg_init_weight: float,
+                  rrg_scherduler_cls, cosine_scale: float,
+                  repaint: bool) -> _Schedule:
+        """The per-step constants; the backgrounds from the base seed."""
+        b = self.bundle
+        T = num_inference_steps
+        st = self.scheduler.set_timesteps(T)
+        rrg_sched = make_rrg_scheduler(rrg_scherduler_cls, T, rrg_stop_t,
+                                       rrg_init_weight, cosine_scale)
+        bg_seed = _fold(self._seed, 2)
+        tables = [background.make_background_table(
+            b, st.timesteps, pad, seed, self.scheduler)
+            if pad.needs_padding else {}
+            for pad, seed in ((ctx.down_pad, bg_seed),
+                              (ctx.view_pad, _fold(bg_seed, 1)))]
+        # T == 1: the only step is the last step, which never repaints
+        undo = [self.scheduler.undo_step_coeffs(st, int(st.timesteps[i + 1]))
+                for i in range(T - 1)] if repaint else []
+        return _Schedule(st, self.scheduler.coeff_tables(st),
+                         rrg_weight_table(rrg_sched, T), *tables, undo)
+
+    @timelog.time_function
     @torch.no_grad()
     def generate_image(self, prompts, negative_prompts: str = "",
                        height: int = 768, width: int = 768,
@@ -285,12 +454,16 @@ class ElasticDiffusion:
         condition_image: (1 | B, 3, h, w) or (3, h, w) in [0, 1], the
         ControlNet condition (``apps/preprocessors.py`` makes one); it is
         nearest-resized to the downsampled size in pixels when it has
-        another size. Needs a bundle loaded with a ControlNet."""
-        if tiled_decoder:
-            raise _later("tiled_decoder=True", "tiled and halo decode")
-        if checkpoint_path is not None or resume_from is not None:
-            raise _later("latent checkpoint / resume",
-                         "latent checkpoint/resume")
+        another size. Needs a bundle loaded with a ControlNet.
+
+        tiled_decoder: decode with ``halo_decode`` (``use_halo_decode``, the
+        default) or ``tiled_decode``. checkpoint_path / checkpoint_every:
+        after every `checkpoint_every`-th step, write the latent
+        (``latent``), the step (``step``) and the step generator's state
+        (``generator``) to the ``.npz`` file `checkpoint_path`.
+        resume_from: such a file; the run restores the latent and the
+        generator and goes on at the step after the saved one, so that it
+        ends with the uninterrupted run's latent."""
         t_fn0 = time.time()
         b = self.bundle
         dev = self.device
@@ -300,62 +473,11 @@ class ElasticDiffusion:
         if isinstance(negative_prompts, str):
             negative_prompts = [negative_prompts] * len(prompts)
         B = len(prompts)
+        ctx = self._context(prompts, negative_prompts, height, width,
+                            guidance_scale, resampling_steps, new_p,
+                            condition_image, controlnet_conditioning_scale)
         vsf = self.vae_scale_factor
-        if height % vsf or width % vsf:
-            raise ValueError(f"height {height} and width {width} must be "
-                             f"divisible by {vsf}")
         lat_h, lat_w = height // vsf, width // vsf
-        down_h, down_w = self.get_downsample_size(height, width)
-
-        # static plans
-        resample_plan = build_resample_plan(lat_h, lat_w, down_h, down_w)
-        # the effective downsample can differ from the request at awkward ratios
-        down_h, down_w = resample_plan.out_h, resample_plan.out_w
-        view_plan = build_view_plan(lat_h, lat_w, self.view_config)
-        m = b.config.min_latent_size
-        down_pad = PadSpec(down_h, down_w, m, m)
-        view_pad = PadSpec(*view_plan.out_shape, m, m)
-        V = view_plan.num_views
-        vbs = self.runtime.view_batch_size or self.view_batch_size
-        view_chunk = vbs if vbs and vbs < V else 0
-
-        # schedules
-        st = self.scheduler.set_timesteps(num_inference_steps)
-        coeff_table = self.scheduler.coeff_tables(st)
-        rrg_sched = make_rrg_scheduler(rrg_scherduler_cls, num_inference_steps,
-                                       rrg_stop_t, rrg_init_weight, cosine_scale)
-        rrg_w = rrg_weight_table(rrg_sched, num_inference_steps)
-
-        # text
-        uncond_text, uncond_pooled = self.get_text_embeds(negative_prompts)
-        cond_text, cond_pooled = self.get_text_embeds(prompts)
-        text_cfg = torch.cat([uncond_text, cond_text])
-        add_text_cfg = add_time_ids = uncond_pooled_arg = None
-        if b.config.is_xl:
-            add_text_cfg = torch.cat([uncond_pooled, cond_pooled])
-            # the reference's micro-conditioning quirk: original and target
-            # size are (4H, 4W), not the size asked for
-            default_size = (4 * height, 4 * width)
-            add_time_ids = self._get_add_time_ids(default_size, (0, 0),
-                                                  default_size)
-            uncond_pooled_arg = uncond_pooled
-
-        # ControlNet condition, at the downsampled size in pixels: the
-        # direction pads it, the local signal upsamples and crops it
-        cn_cond = None
-        if condition_image is not None:
-            if b.controlnet is None:
-                raise ValueError("condition_image needs a bundle with a "
-                                 "ControlNet (controlnet_model=...)")
-            cn_cond = torch.as_tensor(condition_image, dtype=torch.float32,
-                                      device=dev)
-            if cn_cond.dim() == 3:
-                cn_cond = cn_cond[None]
-            if cn_cond.shape[1] != 3 or cn_cond.shape[0] not in (1, B):
-                raise ValueError(f"condition must be (1|{B}, 3, h, w) in "
-                                 f"[0, 1], got {tuple(cn_cond.shape)}")
-            cn_cond = nearest_resize(cn_cond, (down_h * vsf, down_w * vsf))
-            cn_cond = cn_cond.expand(B, *cn_cond.shape[1:])
 
         # initial latent
         if latents is None:
@@ -366,38 +488,29 @@ class ElasticDiffusion:
         else:
             lat = torch.as_tensor(latents, dtype=torch.float32, device=dev)
 
-        # background tables
-        bg_seed = _fold(self._seed, 2)
-        bg_down_tbl = background.make_background_table(
-            b, st.timesteps, down_pad, bg_seed, self.scheduler) \
-            if down_pad.needs_padding else {}
-        bg_view_tbl = background.make_background_table(
-            b, st.timesteps, view_pad, _fold(bg_seed, 1), self.scheduler) \
-            if view_pad.needs_padding else {}
-
-        ctx = _StepContext(
-            resample_plan=resample_plan, view_plan=view_plan,
-            down_pad=down_pad, view_pad=view_pad,
-            guidance_scale=guidance_scale, resampling_steps=resampling_steps,
-            drop_p=1 - new_p, view_chunk=view_chunk, text_cfg=text_cfg,
-            uncond_text=uncond_text,
-            generator=torch.Generator(device=dev).manual_seed(
-                _fold(self._seed, 3)),
-            add_text_cfg=add_text_cfg, uncond_pooled=uncond_pooled_arg,
-            add_time_ids=add_time_ids, controlnet_cond=cn_cond,
-            controlnet_scale=controlnet_conditioning_scale)
-
         do_repaint = repaint_sampling and resampling_steps > 0
+        sched = self._schedule(ctx, num_inference_steps, rrg_stop_t,
+                               rrg_init_weight, rrg_scherduler_cls,
+                               cosine_scale, do_repaint)
         T = num_inference_steps
-        # T == 1: the only step is the last step, which never repaints
-        undo = [self.scheduler.undo_step_coeffs(st, int(st.timesteps[i + 1]))
-                for i in range(T - 1)] if do_repaint else []
+
+        # latent checkpoint/resume: the latent, the step and the generator
+        start_step = 0
+        if resume_from is not None:
+            ck = np.load(resume_from)
+            if tuple(ck["latent"].shape) != tuple(lat.shape):
+                raise ValueError(f"checkpoint latent {ck['latent'].shape} != "
+                                 f"{tuple(lat.shape)}")
+            lat = torch.as_tensor(ck["latent"], device=dev)
+            ctx.generator.set_state(torch.from_numpy(ck["generator"]))
+            start_step = int(ck["step"]) + 1
 
         # per-step cost model
+        V = ctx.view_plan.num_views
         fwd_per_step = 2 * (resampling_steps + 1) + V
         fwd_repaint = 2 + V
 
-        steps_iter = range(T)
+        steps_iter = range(start_step, T)
         if progress is not None:
             steps_iter = progress(steps_iter)
         total_fwd = 0
@@ -408,13 +521,7 @@ class ElasticDiffusion:
             torch.cuda.synchronize(dev)  # the preamble is not the denoise loop
         t_start = time.time()
         for i in steps_iter:
-            use_repaint = do_repaint and i < T - 1
-            inp = {"t": float(st.timesteps[i]), "coeffs": coeff_table[i],
-                   "rrg_w": float(rrg_w[i]),
-                   "bg_down": {s: tbl[i] for s, tbl in bg_down_tbl.items()},
-                   "bg_view": {s: tbl[i] for s, tbl in bg_view_tbl.items()}}
-            if use_repaint:
-                inp["undo_s1mb"], inp["undo_sb"] = undo[i]
+            inp, use_repaint = sched.inputs(i)
             if scripted_noise is not None:
                 for k_, v_ in scripted_noise.items():
                     arr = v_[i] if isinstance(v_, (list, tuple)) else v_
@@ -426,8 +533,12 @@ class ElasticDiffusion:
                 init_downsampled_latent = aux["init_downsampled_latent"]
             if self.verbose and i % self.log_freq == 0:
                 inter_x0.append(aux["x0"])
-                if rrg_w[i] > 10:
+                if sched.rrg_w[i] > 10:
                     inter_rrg_x0.append(aux["rrg_x0"])
+            if checkpoint_path and checkpoint_every \
+                    and (i + 1) % checkpoint_every == 0:
+                np.savez(checkpoint_path, latent=lat.cpu().numpy(), step=i,
+                         generator=ctx.generator.get_state().numpy())
         if on_cuda:
             torch.cuda.synchronize(dev)
         elapsed = time.time() - t_start
@@ -438,15 +549,19 @@ class ElasticDiffusion:
             "preamble_seconds": t_start - t_fn0,
         }
 
+        if tiled_decoder:
+            decode = self.halo_decode if self.use_halo_decode \
+                else self.tiled_decode
+        else:
+            decode = self.decode_latents
         image_log: Dict[str, Any] = {}
         if self.verbose:
             image_log = self._image_log(
-                init_downsampled_latent, text_cfg, add_text_cfg, add_time_ids,
-                guidance_scale, T, down_pad, bg_down_tbl, st, inter_x0,
-                inter_rrg_x0)
+                init_downsampled_latent, ctx, T, sched, inter_x0,
+                inter_rrg_x0, decode)
 
         t_dec0 = time.time()
-        imgs = torch.cat([self.decode_latents(lat[i:i + 1]) for i in range(B)])
+        imgs = torch.cat([decode(lat[i:i + 1]) for i in range(B)])
         if on_cuda:
             torch.cuda.synchronize(dev)
         self.last_metrics["decode_seconds"] = time.time() - t_dec0
@@ -457,28 +572,31 @@ class ElasticDiffusion:
             return to_pil(arr), image_log
         return to_pil(imgs), image_log
 
-    def _image_log(self, init_down, text_cfg, add_text_cfg, add_time_ids,
-                   guidance_scale, steps, down_pad, bg_down_tbl, st, inter_x0,
-                   inter_rrg_x0) -> Dict[str, Any]:
+    def _image_log(self, init_down, ctx: _StepContext, steps: int,
+                   sched: _Schedule, inter_x0, inter_rrg_x0,
+                   decode_fn) -> Dict[str, Any]:
         """The verbose image log: the low-resolution global image and the
-        decoded intermediate x0 predictions."""
+        decoded intermediate x0 predictions (these through `decode_fn`, the
+        final decode's route)."""
         log: Dict[str, Any] = {}
-        decode = lambda xs: np.concatenate(
-            [self.decode_latents(x).cpu().numpy() for x in xs])
+        decode = lambda fn, xs: np.concatenate(
+            [fn(x).cpu().numpy() for x in xs])
         row = lambda dec: to_pil(make_grid(dec, nrow=len(dec))[None])[0]
         if init_down is not None:
             g_img, g_info = self.generate(
-                init_down, text_cfg, add_text_cfg,
-                guidance_scale=guidance_scale, num_inference_steps=steps,
-                add_time_ids=add_time_ids, pad_spec=down_pad,
-                bg_tables=bg_down_tbl or None, state=st)
+                init_down, ctx.text_cfg, ctx.add_text_cfg,
+                guidance_scale=ctx.guidance_scale, num_inference_steps=steps,
+                add_time_ids=ctx.add_time_ids, pad_spec=ctx.down_pad,
+                bg_tables=sched.bg_down or None, state=sched.state)
             log["global_img"] = to_pil(g_img)[0]
             if g_info["inter_x0"]:
                 log["global_img_inter_x0_imgs"] = row(decode(
+                    self.decode_latents,
                     [torch.as_tensor(x, device=self.device)
                      for x in g_info["inter_x0"]]))
         if inter_x0:
-            log["intermediate_x0_imgs"] = row(decode(inter_x0))
+            log["intermediate_x0_imgs"] = row(decode(decode_fn, inter_x0))
         if inter_rrg_x0:
-            log["intermediate_cascade_x0_imgs"] = {"rrg": row(decode(inter_rrg_x0))}
+            log["intermediate_cascade_x0_imgs"] = {
+                "rrg": row(decode(decode_fn, inter_rrg_x0))}
         return log

@@ -47,6 +47,11 @@
 // shift. gn_apply walks the rows in reverse order, so the rows the
 // statistics read last are read again first, from L2.
 //
+// The two halves of plan 2 are also entries of their own
+// (ed_group_norm_sums, ed_group_norm_apply): the streamed decode sums the
+// moments of a whole tensor window by window and normalises each window
+// with them.
+//
 // No sum is taken with atomics: results repeat from run to run.
 
 #include <cooperative_groups.h>
@@ -481,8 +486,9 @@ __global__ void __launch_bounds__(THREADS)
     gn_stats(const T* __restrict__ x, const void* __restrict__ w,
              const void* __restrict__ bias, int w_bf16,
              float* __restrict__ partial, float* __restrict__ scale,
-             float* __restrict__ shift, unsigned* __restrict__ counter, int S,
-             int C, int G, int rows_per_chunk, int TX, int TY, float eps) {
+             float* __restrict__ shift, float* __restrict__ sums,
+             unsigned* __restrict__ counter, int S, int C, int G,
+             int rows_per_chunk, int TX, int TY, float eps) {
   extern __shared__ __align__(16) float sm[];
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int CV = C / VEC;
@@ -567,6 +573,12 @@ __global__ void __launch_bounds__(THREADS)
     tot[col] = acc;
   }
   __syncthreads();
+  if (sums != nullptr) {  // group_norm_sums: the image's channel sums alone
+    for (int col = threadIdx.x; col < 2 * C; col += THREADS)
+      sums[(long long)b * 2 * C + col] = tot[col];
+    if (threadIdx.x == 0) counter[b] = 0;
+    return;
+  }
   const int gs = C / G;
   for (int g = threadIdx.x; g < G; g += THREADS) {
     float s1 = 0.f, s2 = 0.f;
@@ -750,13 +762,15 @@ cudaError_t launch_cluster(const void* x, const void* w, const void* bias,
                             units, eps, silu);
 }
 
+// gn_stats over (B, S, C); with `sums` it writes the images' channel sums
+// (B, 2, C) and stops there, without it scale and shift from w, bias, G and
+// eps.
 template <typename T, int VEC>
-cudaError_t launch_two_pass(const void* x, const void* w, const void* bias,
-                            int w_bf16, void* y, float* partial, float* scale,
-                            float* shift, unsigned* counter, int B, int S,
-                            int C, int G, float eps, int silu,
-                            int rows_per_chunk, int smem, int blocks,
-                            cudaStream_t stream) {
+cudaError_t launch_stats(const void* x, const void* w, const void* bias,
+                         int w_bf16, float* partial, float* scale,
+                         float* shift, float* sums, unsigned* counter, int B,
+                         int S, int C, int G, float eps, int rows_per_chunk,
+                         int smem, int blocks, cudaStream_t stream) {
   const int CV = C / VEC;
   const int TX = CV < THREADS ? CV : THREADS;
   const int TY = THREADS / TX;
@@ -771,10 +785,19 @@ cudaError_t launch_two_pass(const void* x, const void* w, const void* bias,
       gn_stats<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (attr != cudaSuccess) return attr;
   gn_stats<T, VEC><<<dim3(nchunks, B, ZC), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), w, bias, w_bf16, partial, scale, shift,
+      static_cast<const T*>(x), w, bias, w_bf16, partial, scale, shift, sums,
       counter, S, C, G, rows_per_chunk, TX, TY, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_apply(const void* x, const float* scale, const float* shift,
+                         void* y, int B, int S, int C, int silu,
+                         cudaStream_t stream) {
+  const int CV = C / VEC;
+  const int TX = CV < THREADS ? CV : THREADS;
+  const int TY = THREADS / TX;
+  const int ZC = (CV + TX - 1) / TX;
   const int row_bytes = C * (int)sizeof(T);
   int rows = (APPLY_BYTES / row_bytes) / TY * TY;
   if (rows < TY) rows = TY;
@@ -782,6 +805,21 @@ cudaError_t launch_two_pass(const void* x, const void* w, const void* bias,
       static_cast<const T*>(x), scale, shift, static_cast<T*>(y), S, C, rows,
       TX, TY, silu);
   return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_two_pass(const void* x, const void* w, const void* bias,
+                            int w_bf16, void* y, float* partial, float* scale,
+                            float* shift, unsigned* counter, int B, int S,
+                            int C, int G, float eps, int silu,
+                            int rows_per_chunk, int smem, int blocks,
+                            cudaStream_t stream) {
+  cudaError_t err = launch_stats<T, VEC>(x, w, bias, w_bf16, partial, scale,
+                                         shift, nullptr, counter, B, S, C, G,
+                                         eps, rows_per_chunk, smem, blocks,
+                                         stream);
+  if (err != cudaSuccess) return err;
+  return launch_apply<T, VEC>(x, scale, shift, y, B, S, C, silu, stream);
 }
 
 // Plan 3: B x K blocks, all resident at once (a cooperative launch; the
@@ -890,6 +928,54 @@ extern "C" int ed_group_norm(const void* x, const void* w, const void* bias,
 #undef ED_GN_TWO_PASS
     return -1;
   }
+  return -1;
+}
+
+// The two halves of the two-pass body on their own, for a caller that
+// holds the statistics across launches (the streamed decode of
+// parallel/halo_decode.py: moments of a whole tensor summed over row
+// windows, then each window normalised). x: (B, S, C) contiguous; dtype and
+// vec as for ed_group_norm.
+// ed_group_norm_sums: sums (B, 2, C) fp32, the per-channel sum and sum of
+// squares of each image; partial (B, chunks, 2, C) fp32 scratch, counter: B
+// int32 zeros (left zero); rows_per_chunk, smem and blocks from the plan of
+// the statistics launch.
+extern "C" int ed_group_norm_sums(const void* x, void* sums, void* partial,
+                                  void* counter, int B, int S, int C,
+                                  int dtype, int vec, int rows_per_chunk,
+                                  int smem, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(sums);
+  float* pp = static_cast<float*>(partial);
+  unsigned* cnt = static_cast<unsigned*>(counter);
+#define ED_GN_SUMS(T, VEC)                                                   \
+  return (int)launch_stats<T, VEC>(x, nullptr, nullptr, 0, pp, nullptr,      \
+                                   nullptr, out, cnt, B, S, C, 0, 0.f,       \
+                                   rows_per_chunk, smem, blocks, st)
+  if (dtype == 0 && vec == 16) ED_GN_SUMS(bf16, 8);
+  if (dtype == 0 && vec == 2) ED_GN_SUMS(bf16, 1);
+  if (dtype == 1 && vec == 16) ED_GN_SUMS(float, 4);
+  if (dtype == 1 && vec == 4) ED_GN_SUMS(float, 1);
+#undef ED_GN_SUMS
+  return -1;
+}
+
+// ed_group_norm_apply: y = x * scale + shift (then SiLU when silu), scale
+// and shift (B, C) fp32, y (B, S, C) in x's type.
+extern "C" int ed_group_norm_apply(const void* x, const void* scale,
+                                   const void* shift, void* y, int B, int S,
+                                   int C, int silu, int dtype, int vec,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+#define ED_GN_APPLY(T, VEC) \
+  return (int)launch_apply<T, VEC>(x, sc, sh, y, B, S, C, silu, st)
+  if (dtype == 0 && vec == 16) ED_GN_APPLY(bf16, 8);
+  if (dtype == 0 && vec == 2) ED_GN_APPLY(bf16, 1);
+  if (dtype == 1 && vec == 16) ED_GN_APPLY(float, 4);
+  if (dtype == 1 && vec == 4) ED_GN_APPLY(float, 1);
+#undef ED_GN_APPLY
   return -1;
 }
 

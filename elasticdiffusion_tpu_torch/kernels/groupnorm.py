@@ -26,6 +26,14 @@ Replaces the Pallas TPU kernels ``fused_group_norm`` / ``_stats_kernel`` /
               apply in reverse row order, so that the rows read last are read
               again first, from L2.
 
+The two-pass body's halves are also entries of their own:
+``group_norm_sums`` (per-channel sums of a tensor or a window of rows) and
+``group_norm_apply`` (``x * scale + shift`` and SiLU with per-image,
+per-channel fp32 scale and shift). The streamed decode of
+``parallel/halo_decode.py`` takes GroupNorm's moments of a whole tensor
+window by window from the first, turns them into scale and shift in torch
+(``group_scale_shift``) and normalises each window with the second.
+
 No sum is taken with atomics, so results repeat from run to run.
 ``split_group_norm`` is the plain version of the bodies' order of sums.
 
@@ -210,6 +218,13 @@ def groupnorm_plan(dtype: torch.dtype, B: int, S: int, C: int, G: int,
             return plan
     if cluster is not None:
         return cluster
+    return _two_pass_plan(elt, B, S, C, G, align)
+
+
+def _two_pass_plan(elt: int, B: int, S: int, C: int, G: int,
+                   align: int) -> GroupNormPlan:
+    """The two-pass body's plan; its statistics launch alone with G = 0
+    (``group_norm_sums``)."""
     vec = 16 if (C * elt % 16 == 0 and align >= 16) else elt
     tx, ty, zc = _two_pass_shape(C, elt, vec)
     nchunks = max(1, min(-(-STATS_BLOCKS // (B * zc)), -(-S // (ty * UNROLL))))
@@ -233,6 +248,44 @@ def reference_group_norm(x: torch.Tensor, weight: torch.Tensor,
     if silu:
         out = out * torch.sigmoid(out)
     return out.to(x.dtype)
+
+
+def reference_group_norm_sums(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``group_norm_sums``: (B, 2, C) fp32, the sum and
+    the sum of squares of each image's channels over its rows."""
+    xf = x.float().reshape(x.shape[0], -1, x.shape[-1])
+    return torch.stack([xf.sum(dim=1), (xf * xf).sum(dim=1)], dim=1)
+
+
+def reference_group_norm_apply(x: torch.Tensor, scale: torch.Tensor,
+                               shift: torch.Tensor,
+                               silu: bool = False) -> torch.Tensor:
+    """Plain version of ``group_norm_apply``: ``x * scale + shift`` in
+    fp32 with (B, C) fp32 scale and shift, then SiLU; in x's dtype."""
+    B, C = x.shape[0], x.shape[-1]
+    bc = (B,) + (1,) * (x.dim() - 2) + (C,)
+    out = x.float() * scale.reshape(bc) + shift.reshape(bc)
+    if silu:
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype)
+
+
+def group_scale_shift(sums: torch.Tensor, count: int, weight: torch.Tensor,
+                      bias: torch.Tensor, groups: int, eps: float):
+    """(B, 2, C) channel sums over ``count`` rows -> the (B, C) fp32
+    ``scale``, ``shift`` of GroupNorm: group moments
+    ``var = E[x^2] - E[x]^2``, ``scale = w * rsqrt(var + eps)``,
+    ``shift = b - mean * scale``. The step between the two halves, in
+    torch on the tensor's device, as the JAX kernel keeps it in jnp."""
+    B, _, C = sums.shape
+    gs = C // groups
+    g = sums.reshape(B, 2, groups, gs).sum(dim=-1)
+    cnt = float(count * gs)
+    mean = g[:, 0] / cnt
+    var = g[:, 1] / cnt - mean * mean
+    scale = weight.float() * torch.rsqrt(var + eps).repeat_interleave(gs, dim=-1)
+    shift = bias.float() - mean.repeat_interleave(gs, dim=-1) * scale
+    return scale, shift
 
 
 def split_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -359,6 +412,95 @@ fused_group_norm.launches = 0
 fused_group_norm.copies = 0  # inputs that x.contiguous() had to copy
 
 
+def _rows(x: torch.Tensor, what: str):
+    """(B, S, C) of a (B, H, W, C) operand of the halves, S = H * W."""
+    if not x.is_cuda:
+        raise RuntimeError(f"{what} launches a CUDA kernel and needs CUDA "
+                           "tensors")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes bf16 or fp32, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{what} takes (B, H, W, C), got {tuple(x.shape)}")
+    B, H, W, C = x.shape
+    return B, H * W, C
+
+
+def group_norm_sums(x: torch.Tensor) -> torch.Tensor:
+    """The statistics half alone: (B, 2, C) fp32 per-channel sum and sum
+    of squares of a (B, H, W, C) bf16 or fp32 tensor on the GPU (a whole
+    tensor or a window of rows of one). The two-pass body's ``gn_stats``:
+    partial sums over row chunks, added in chunk order by the last block
+    of each image; no atomics."""
+    B, S, C = _rows(x, "group_norm_sums")
+    if not x.is_contiguous():
+        fused_group_norm.copies += 1
+        x = x.contiguous()
+    elt = x.element_size()
+    plan = _two_pass_plan(elt, B, S, C, 0, _align(x.data_ptr()))
+    sums = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
+    partial = torch.empty((B, -(-S // plan.rows_per_cta), 2, C),
+                          dtype=torch.float32, device=x.device)
+    lib = build.load("groupnorm")
+    fn = lib.ed_group_norm_sums
+    if not fn.argtypes:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), sums.data_ptr(), partial.data_ptr(),
+                  _counter(x.device, B).data_ptr(), B, S, C, _DTYPES[x.dtype],
+                  plan.vec, plan.rows_per_cta, plan.smem_bytes, plan.blocks,
+                  stream)
+    build.check(lib, code, "group_norm_sums")
+    group_norm_sums.launches += 1
+    note_launch("group_norm_sums", str(x.dtype), *x.shape)
+    return sums
+
+
+group_norm_sums.launches = 0
+
+
+def group_norm_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                     silu: bool = False) -> torch.Tensor:
+    """The apply half alone: ``x * scale + shift`` (then SiLU) for a
+    (B, H, W, C) bf16 or fp32 tensor on the GPU and (B, C) fp32 scale and
+    shift; returns ``x.dtype``. The two-pass body's ``gn_apply``."""
+    B, S, C = _rows(x, "group_norm_apply")
+    if scale.dtype != torch.float32 or shift.dtype != torch.float32:
+        raise TypeError("group_norm_apply takes fp32 scale and shift")
+    if scale.shape != (B, C) or shift.shape != (B, C):
+        raise ValueError(f"scale and shift must be {(B, C)}, got "
+                         f"{tuple(scale.shape)} and {tuple(shift.shape)}")
+    if not (scale.is_cuda and shift.is_cuda):
+        raise RuntimeError("group_norm_apply needs CUDA tensors")
+    if not x.is_contiguous():
+        fused_group_norm.copies += 1
+        x = x.contiguous()
+    scale, shift = scale.contiguous(), shift.contiguous()
+    y = torch.empty_like(x)
+    elt = x.element_size()
+    vec = 16 if (C * elt % 16 == 0
+                 and _align(x.data_ptr(), y.data_ptr()) >= 16) else elt
+    lib = build.load("groupnorm")
+    fn = lib.ed_group_norm_apply
+    if not fn.argtypes:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
+                  B, S, C, int(silu), _DTYPES[x.dtype], vec, stream)
+    build.check(lib, code, "group_norm_apply")
+    group_norm_apply.launches += 1
+    note_launch("group_norm_apply", str(x.dtype), str(scale.dtype), *x.shape,
+                bool(silu))
+    return y
+
+
+group_norm_apply.launches = 0
+
+
 def max_active_clusters(plan: GroupNormPlan, dtype: torch.dtype) -> int:
     """How many clusters of a cluster-body plan the card can hold at once
     (``cudaOccupancyMaxActiveClusters``); 0 would mean the plan cannot be
@@ -388,3 +530,24 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 group_norm.plain_cuda_calls = 0
+
+
+def moment_sums(x: torch.Tensor, use_kernels: str = "auto") -> torch.Tensor:
+    """Dispatch of the statistics half: ``group_norm_sums`` for a CUDA
+    tensor, its plain version for a CPU tensor or under
+    ``use_kernels='off'``."""
+    if wants_kernel(use_kernels, x.is_cuda, "group_norm_sums"):
+        return group_norm_sums(x)
+    if x.is_cuda:
+        group_norm.plain_cuda_calls += 1
+    return reference_group_norm_sums(x)
+
+
+def scale_shift(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                silu: bool = False, use_kernels: str = "auto") -> torch.Tensor:
+    """Dispatch of the apply half, as ``moment_sums``."""
+    if wants_kernel(use_kernels, x.is_cuda, "group_norm_apply"):
+        return group_norm_apply(x, scale, shift, silu)
+    if x.is_cuda:
+        group_norm.plain_cuda_calls += 1
+    return reference_group_norm_apply(x, scale, shift, silu)

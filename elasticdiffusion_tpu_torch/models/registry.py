@@ -113,12 +113,17 @@ class ModelBundle:
                                added_text_embeds=added_text_embeds,
                                added_time_ids=added_time_ids)
 
+    @property
+    def fp32_decode(self) -> bool:
+        """Whether decodes run in fp32: only when the config demands it
+        (force_upcast) and the runtime allows it."""
+        return bool(self.config.vae.force_upcast and self.runtime.vae_decode_fp32)
+
     @torch.no_grad()
     def vae_decode(self, latents_nchw):
-        """Latents (already divided by scaling_factor) -> RGB in [-1,1].
-        fp32 only when the config demands it (force_upcast) and the runtime
-        allows it; otherwise the compute dtype."""
-        if self.config.vae.force_upcast and self.runtime.vae_decode_fp32:
+        """Latents (already divided by scaling_factor) -> RGB in [-1,1],
+        in fp32 where ``fp32_decode`` says so, else in the compute dtype."""
+        if self.fp32_decode:
             with _fp32_convs():
                 return self.vae_fp32.decode(latents_nchw.float())
         return self.vae.decode(latents_nchw)

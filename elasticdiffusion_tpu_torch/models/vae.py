@@ -3,8 +3,12 @@
 Counterpart of ``elasticdiffusion_tpu/models/vae.py``: encode returns a
 diagonal-Gaussian latent distribution that the caller samples with its own
 noise; decode maps latents back to [-1, 1] RGB; ``scaling_factor`` is applied
-by the pipeline. The decoder is one stage (the JAX package's a/b split
-serves its halo decode, a later slice).
+by the pipeline. The decoder runs in two stages, as the JAX package's
+does: stage a (``conv_in`` and the mid block, which holds the one global
+attention) at latent resolution, stage b (the up blocks, ``conv_norm_out``,
+SiLU and ``conv_out``: convolutions and GroupNorms only) for the 8x
+upsampling. ``parallel/halo_decode.py`` decodes large images from the
+split.
 
 NCHW at the public boundary, ``channels_last`` inside (see
 ``models/layers.py``). Module names follow the diffusers checkpoint.
@@ -94,15 +98,19 @@ class Decoder(nn.Module):
                                          use_kernels=use_kernels)
         self.conv_out = Conv3x3(ch, config.out_channels)
 
-    def forward(self, z):
-        x = self.conv_in(z)
-        x = _run_mid(self.mid_block, x)
+    def stage_a(self, z):
+        return _run_mid(self.mid_block, self.conv_in(z))
+
+    def stage_b(self, x):
         for blk in self.up_blocks:
             for resnet in blk.resnets:
                 x = resnet(x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
         return self.conv_out(self.conv_norm_out(x))
+
+    def forward(self, z):
+        return self.stage_b(self.stage_a(z))
 
 
 class AutoencoderKL(nn.Module):
@@ -139,8 +147,18 @@ class AutoencoderKL(nn.Module):
     def decode(self, latents_nchw):
         """(B,4,h,w) (already divided by scaling_factor) -> (B,3,8h,8w) in
         [-1,1]."""
-        z = self.post_quant_conv(self._entry(latents_nchw))
-        return self.decoder(z).contiguous()
+        return self.decode_stage_b(self.decode_stage_a(latents_nchw))
+
+    def decode_stage_a(self, latents_nchw):
+        """post_quant_conv, conv_in and the mid block (the global attention)
+        at latent resolution: (B,4,h,w) -> (B,C_top,h,w), channels_last."""
+        return self.decoder.stage_a(self.post_quant_conv(
+            self._entry(latents_nchw)))
+
+    def decode_stage_b(self, hidden_nchw):
+        """The upsampling stack, whose receptive field is finite:
+        (B,C_top,h,w) -> (B,3,8h,8w)."""
+        return self.decoder.stage_b(self._entry(hidden_nchw)).contiguous()
 
     def forward(self, images_nchw, noise):
         return self.decode(self.encode_sample(images_nchw, noise))

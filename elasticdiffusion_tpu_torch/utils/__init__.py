@@ -1,1 +1,2 @@
-"""Utilities: the CLIP tokenizer and image assembly helpers."""
+"""Utilities: the CLIP tokenizer, image assembly helpers and wall-clock
+timing (``timeit``)."""

@@ -47,9 +47,10 @@ def report():
 def test_the_walk_finds_the_new_modules():
     assert "elasticdiffusion_tpu_torch.kernels.conv3x3" in MODULES
     assert "elasticdiffusion_tpu_torch.models.registry" in MODULES
-    for name in ("models.controlnet", "models.dpt", "apps.preprocessors"):
+    for name in ("models.controlnet", "models.dpt", "apps.preprocessors",
+                 "parallel.halo_decode", "core.entry", "utils.timeit"):
         assert f"elasticdiffusion_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 33
+    assert len(MODULES) >= 37
 
 
 @pytest.mark.parametrize("name", TARGETS)

@@ -119,15 +119,38 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 @pytest.mark.parametrize("kwargs", [
     dict(tiled_decoder=True),
-    dict(checkpoint_path="latent.npz"),
+    dict(checkpoint_path="latent.npz", checkpoint_every=1),
     dict(resume_from="latent.npz"),
 ], ids=["tiled_decoder", "checkpoint_path", "resume_from"])
-def test_later_slices_raise_not_implemented(kwargs):
+def test_later_slices_raise_not_implemented(kwargs, tmp_path):
+    """These arguments belonged to later slices and run now (the decode at
+    large sizes and latent checkpoint/resume are ported): a one-step run
+    with each gives the plain run's image (the halo decode equals the
+    monolithic one within the streamed decode's bar, atol 1e-4 on values in
+    [0, 1]; a checkpoint and a resume from it change nothing); what of them
+    is still to come, a device mesh for the halo decode, raises."""
     _, tb = toy_bundles()
     tp = TElastic(bundle=tb, device="cpu")
+    kw = dict(height=32, width=48, num_inference_steps=1, resampling_steps=0,
+              return_arrays=True)
+    plain, _ = tp.generate_image("a cat", **kw)
+    kwargs = {k: str(tmp_path / v) if k != "tiled_decoder" and
+              isinstance(v, str) else v for k, v in kwargs.items()}
+    if "resume_from" in kwargs:  # a checkpoint of the run's only step
+        tp.generate_image("a cat", checkpoint_path=kwargs["resume_from"],
+                          checkpoint_every=1, **kw)
+        # resuming after the last step leaves the latent as saved
+        img, info = tp.generate_image("a cat", **kwargs, **kw)
+        assert tp.last_step_latents == []
+    else:
+        img, info = tp.generate_image("a cat", **kwargs, **kw)
+    np.testing.assert_allclose(img, plain, atol=1e-4)
+    if "checkpoint_path" in kwargs:
+        assert set(np.load(kwargs["checkpoint_path"]).files) == {
+            "latent", "step", "generator"}
+    from elasticdiffusion_tpu_torch.parallel.halo_decode import halo_decode
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tp.generate_image("a cat", height=32, width=48, num_inference_steps=1,
-                          resampling_steps=0, **kwargs)
+        halo_decode(tb, torch.zeros(1, 4, 4, 4), mesh=object())
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
@@ -136,9 +159,14 @@ def test_later_slices_raise_not_implemented(kwargs):
                                          checkpoint_dir="/nowhere")],
                          ids=["mesh", "low_vram", "checkpoint_dir"])
 def test_later_slices_raise_in_constructor(kwargs):
+    """A mesh and checkpoint_dir still raise; low_vram (which shapes the
+    tiled decode) is accepted since the decode at large sizes is ported."""
     _, tb = toy_bundles()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TElastic(**{"bundle": tb, "device": "cpu", **kwargs})
+    if "low_vram" in kwargs:
+        assert TElastic(bundle=tb, device="cpu", **kwargs).low_vram
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TElastic(**{"bundle": tb, "device": "cpu", **kwargs})
     with pytest.raises(ValueError, match="divisible"):
         TElastic(bundle=tb, device="cpu").generate_image("x", height=33, width=48)
 
