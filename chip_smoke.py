@@ -13,6 +13,8 @@
                                               # the decode routes, and the
                                               # streamed one at other slab
                                               # budgets
+    python3 chip_smoke.py --phases device,build,kernels,apps
+                                              # checkpoints and the apps
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -53,6 +55,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
             be the same. A ControlNet path also fails when the RMS of the
             ControlNet's mid residual or first down residual is 0 at the
             first step of its first request
+  apps      on the sd15_depth bundle: the bundle written as a diffusers
+            checkpoint directory (safetensors, its own dtypes) and the
+            smoke's DPT-large as a transformers one, read back with
+            load_bundle(checkpoint_dir=...) (every tensor equal); then the
+            CLI (512x768), the ControlNet CLI (depth through ED_DPT_DIR) and
+            the PCA app (512x512) each through its main(), from that
+            directory; the two CLI images must equal the same requests on
+            the source bundle in every uint8 value, the PCA app must write
+            its images and report torch.cuda memory; launches checked as for
+            a path
   decode    on the SDXL bundle one latent at 256x256 (2048x2048 px, fp32)
             and on the SD 2.1 bundle one at 96x96 (bf16), each through
             decode_latents, halo_decode(streamed=False) and
@@ -87,11 +99,17 @@ import time
 
 import torch
 
-# published peaks of one H100 SXM (dense): the yardstick of bound_ms
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from elasticdiffusion_tpu_torch.utils.flops import (H100_BF16_TFLOPS,
+                                                    H100_FP32_TFLOPS,
+                                                    H100_HBM_GBPS)
 
-ALL_PHASES = ("device", "build", "kernels", "model", "requests", "decode")
+# published peaks of one H100 SXM (dense): the yardstick of bound_ms
+PEAK_BYTES_PER_S = H100_HBM_GBPS * 1e9
+PEAK_OPS_PER_S = {torch.bfloat16: H100_BF16_TFLOPS * 1e12,
+                  torch.float32: H100_FP32_TFLOPS * 1e12}
+
+ALL_PHASES = ("device", "build", "kernels", "model", "requests", "decode",
+              "apps")
 
 
 LOG_PATH = None  # --log: every emitted line is also appended to this file
@@ -219,6 +237,8 @@ def attention_cases():
         cases.append(("cross", bf, 16, S, 77, H, D))
     cases.append(("vae_mid", bf, 1, 6144, 6144, 1, 512))
     cases.append(("vae_mid", bf, 1, 9216, 9216, 1, 512))
+    # the apps phase's PCA app decodes SD 1.5 at 512x512 px
+    cases.append(("vae_mid", bf, 1, 4096, 4096, 1, 512))
     # SD 2.1's low_vram tiles (48x48 latents) and decodes at 768x768 px
     cases.append(("vae_mid", bf, 1, 2304, 2304, 1, 512))
     cases.append(("vae_mid", f32, 1, 4096, 4096, 1, 512))
@@ -461,9 +481,9 @@ def groupnorm_cases():
                 add(tag, bf, bf, 1e-5 if silu else 1e-6, B, S, S, C, silu)
     # decoders at latent (h, w): mid block (and its attention's norm), the
     # four up blocks, norm_out. SD 1.x / 2.x bf16 at 512x768 and 768x768
-    # px and SD 2.1's low_vram tiles (48x48 latents); SDXL fp32 at
-    # 1024x1536, 1536x1536 and 2048x2048 px
-    for dtype, latents in ((bf, ((64, 96), (96, 96), (48, 48))),
+    # px, SD 2.1's low_vram tiles (48x48 latents) and the apps phase's PCA
+    # app at 512x512 px; SDXL fp32 at 1024x1536, 1536x1536 and 2048x2048 px
+    for dtype, latents in ((bf, ((64, 96), (96, 96), (48, 48), (64, 64))),
                            (f32, ((128, 192), (192, 192), (256, 256)))):
         for h, w in latents:
             for k, C, silu in ((1, 512, F_), (1, 512, T), (2, 512, T),
@@ -1039,6 +1059,19 @@ def scene(height: int, width: int, seed: int):
     return img
 
 
+def smoke_dpt(seed: int):
+    """A DPT-large on the card with seeded random weights, its biases and
+    norm weights perturbed, and its last conv's weights non-negative (see
+    condition_images)."""
+    from elasticdiffusion_tpu_torch.models.dpt import DPT_LARGE, random_dpt
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dpt = random_dpt(DPT_LARGE, gen, device="cuda")
+    perturb_modules([dpt], gen)
+    with torch.no_grad():
+        dpt.head.head[4].weight.abs_()
+    return dpt
+
+
 def condition_images(path, seed: int) -> list:
     """The ControlNet condition of each request of a path, as a user makes
     it: a scene through the port's process_condition_image (canny, or depth
@@ -1055,14 +1088,8 @@ def condition_images(path, seed: int) -> list:
         prepare_image, process_condition_image)
     depth_fn = None
     if path["controlnet"] == "depth":
-        from elasticdiffusion_tpu_torch.models.dpt import (
-            DPT_LARGE, make_depth_fn, random_dpt)
-        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
-        dpt = random_dpt(DPT_LARGE, gen, device="cuda")
-        perturb_modules([dpt], gen)
-        with torch.no_grad():
-            dpt.head.head[4].weight.abs_()
-        depth_fn = make_depth_fn(dpt)
+        from elasticdiffusion_tpu_torch.models.dpt import make_depth_fn
+        depth_fn = make_depth_fn(smoke_dpt(seed + 7))
     out = []
     for i, req in enumerate(path["requests"]):
         h, w = req["height"], req["width"]
@@ -1440,6 +1467,327 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
     return log, totals
 
 
+# The bundle the apps phase writes to disk and reads back: SD 1.5 with the
+# depth ControlNet, perturbed, at full width
+APPS_PATH = "sd15_depth"
+# the CLI requests (height, width) px; the PCA app's: 512x512 px, an image
+# logged every PCA_LOG_FREQ steps
+APPS_SIZE, PCA_SIZE, PCA_LOG_FREQ = (512, 768), 512, 2
+
+
+def save_dpt(dpt, out_dir: str) -> int:
+    """A DPT as a transformers DPTForDepthEstimation directory
+    (config.json, model.safetensors), with the two modules transformers
+    holds and a depth forward never runs (the backbone's last LayerNorm,
+    the first fusion layer's residual_layer1) filled from a seeded
+    generator. Returns the bytes written."""
+    import json
+    import os
+
+    from safetensors.torch import save_file
+    c = dpt.config
+    D, fh = c.hidden_size, c.fusion_hidden_size
+    gen = torch.Generator().manual_seed(0)
+    sd = {k: v.detach().cpu().contiguous() for k, v in dpt.state_dict().items()}
+    sd["dpt.layernorm.weight"] = torch.ones(D)
+    sd["dpt.layernorm.bias"] = torch.zeros(D)
+    for i in (1, 2):
+        pre = f"neck.fusion_stage.layers.0.residual_layer1.convolution{i}"
+        sd[pre + ".weight"] = torch.randn(fh, fh, 3, 3, generator=gen) * 0.02
+        sd[pre + ".bias"] = torch.zeros(fh)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "model.safetensors")
+    save_file(sd, path)
+    config = {"architectures": ["DPTForDepthEstimation"], "model_type": "dpt",
+              "hidden_size": D, "num_hidden_layers": c.num_layers,
+              "num_attention_heads": c.num_heads,
+              "intermediate_size": c.intermediate_size,
+              "patch_size": c.patch_size, "image_size": c.image_size,
+              "backbone_out_indices": list(c.backbone_out_indices),
+              "neck_hidden_sizes": list(c.neck_hidden_sizes),
+              "reassemble_factors": list(c.reassemble_factors),
+              "fusion_hidden_size": fh, "layer_norm_eps": c.layer_norm_eps,
+              "is_hybrid": False, "readout_type": "project"}
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f)
+    return os.path.getsize(path) + os.path.getsize(
+        os.path.join(out_dir, "config.json"))
+
+
+def differing_tensors(pairs) -> tuple:
+    """(tensors compared, names of those not equal in dtype and value) over
+    (name, module, module) pairs, parameters and buffers."""
+    n, differ = 0, []
+    for name, a, b in pairs:
+        sa, sb = a.state_dict(), b.state_dict()
+        if sa.keys() != sb.keys():
+            differ.append(f"{name}: other keys")
+            continue
+        for k, t in sa.items():
+            n += 1
+            if t.dtype != sb[k].dtype or not torch.equal(t, sb[k]):
+                differ.append(f"{name}.{k}")
+    return n, differ
+
+
+def bundle_pairs(a, b):
+    pairs = [("unet", a.unet, b.unet), ("vae_fp32", a.vae_fp32, b.vae_fp32),
+             ("vae", a.vae, b.vae),
+             ("controlnet", a.controlnet, b.controlnet)]
+    return pairs + [(f"text_encoder_{i}", x, y)
+                    for i, (x, y) in enumerate(zip(a.text_models,
+                                                   b.text_models))]
+
+
+def phase_apps(bundle, path, checked=None, steps: int = 4,
+               resampling: int = 3):
+    """The apps at full width from a checkpoint on disk. The path's bundle
+    (SD 1.5 + the depth ControlNet, perturbed) is written as a diffusers
+    directory and the smoke's DPT-large as a transformers one, and read back
+    with load_bundle(checkpoint_dir=...), every tensor equal. Then, each
+    through its main() as a user runs it: the CLI (512x768), the ControlNet
+    CLI (depth through ED_DPT_DIR, a scene as the condition image) and the
+    PCA app (512x512). Launch counts are set to 0 just before the first app
+    and read just after the last; `unchecked_launches` as for a path. Then
+    the two CLI requests run again on the source bundle through
+    ElasticDiffusion, with the runtime the CLI builds (cuDNN convs), and
+    the saved PNGs must equal them in every uint8 value."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    import elasticdiffusion_tpu_torch.kernels as kernels
+    from elasticdiffusion_tpu_torch.apps import (cli, cli_controlnet,
+                                                 pca_scores, preprocessors)
+    from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
+    from elasticdiffusion_tpu_torch.models.controlnet import ControlNet
+    from elasticdiffusion_tpu_torch.models.convert import save_bundle
+    from elasticdiffusion_tpu_torch.models.dpt import make_depth_fn
+    from elasticdiffusion_tpu_torch.models.registry import load_bundle
+    out = {"phase": "apps", "path": path["name"],
+           "sd_version": path["sd_version"], "controlnet": path["controlnet"]}
+    dpt = smoke_dpt(107)  # condition_images' DPT of this path
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "sd15")
+        dpt_dir = os.path.join(tmp, "dpt-large")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        nbytes = save_bundle(bundle, ckpt)
+        t1 = time.time()
+        dpt_bytes = save_dpt(dpt, dpt_dir)
+        t2 = time.time()
+        loaded = load_bundle(path["sd_version"], runtime=bundle.runtime,
+                             checkpoint_dir=ckpt,
+                             controlnet_model=path["controlnet"])
+        torch.cuda.synchronize()
+        t3 = time.time()
+        n, differ = differing_tensors(bundle_pairs(bundle, loaded))
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["checkpoint"] = {
+            "bytes": nbytes, "files": sorted(os.listdir(ckpt)),
+            "write_seconds": t1 - t0, "dpt_bytes": dpt_bytes,
+            "dpt_write_seconds": t2 - t1, "load_seconds": t3 - t2,
+            "tensors_compared": n, "tensors_differing": differ[:20]}
+        if differ or not n:
+            emit(out)
+            fail(f"apps: the bundle read back from {ckpt} differs: {differ[:20]}")
+
+        scene_png = os.path.join(tmp, "scene.png")
+        Image.fromarray(scene(*APPS_SIZE, 300)).save(scene_png)
+        common = ["--sd_version", path["sd_version"], "--checkpoint_dir", ckpt,
+                  "--seed", "0", "--steps", str(steps)]
+        t2i = common + ["--H", str(APPS_SIZE[0]), "--W", str(APPS_SIZE[1]),
+                        "--resampling_steps", str(resampling)]
+        argvs = {"cli": t2i + ["--outdir", os.path.join(tmp, "cli")],
+                 "cli_controlnet": t2i + [
+                     "--outdir", os.path.join(tmp, "cli_controlnet"),
+                     "--controlnet_model", path["controlnet"],
+                     "--condition_image", scene_png],
+                 "pca_scores": common + [
+                     "--H", str(PCA_SIZE), "--W", str(PCA_SIZE),
+                     "--log_freq", str(PCA_LOG_FREQ),
+                     "--outdir", os.path.join(tmp, "pca")]}
+        mains = {"cli": cli.main, "cli_controlnet": cli_controlnet.main,
+                 "pca_scores": pca_scores.main}
+
+        # the ControlNet CLI's condition and its first residuals, recorded
+        conditions, residual_rms = [], {}
+        make_condition = cli_controlnet.make_condition
+
+        def recording_condition(*a, **k):
+            conditions.append(make_condition(*a, **k))
+            return conditions[-1]
+
+        def first_residuals(module, inputs, result):
+            if isinstance(module, ControlNet) and not residual_rms:
+                down, mid = result
+                for name, r in (("mid", mid), ("down0", down[0])):
+                    residual_rms[name] = r.float().pow(2).mean().sqrt().item()
+
+        wrappers, plain = kernel_counts(), plain_cuda_counts()
+        for w in wrappers.values():
+            w.launches = 0
+        for d in plain.values():
+            d.plain_cuda_calls = 0
+        kernels.launch_log = collections.Counter()
+        runs = {}
+        dpt_env = os.environ.get("ED_DPT_DIR")
+        os.environ["ED_DPT_DIR"] = dpt_dir
+        preprocessors._builtin_depth_fn = None
+        cli_controlnet.make_condition = recording_condition
+        try:
+            for name, argv in argvs.items():
+                before = {k: w.launches for k, w in wrappers.items()}
+                hook = torch.nn.modules.module.register_module_forward_hook(
+                    first_residuals) if name == "cli_controlnet" else None
+                buf = io.StringIO()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                try:
+                    with contextlib.redirect_stdout(buf):
+                        save_dir = mains[name](argv)
+                    torch.cuda.synchronize()
+                finally:
+                    if hook is not None:
+                        hook.remove()
+                print(buf.getvalue(), end="", flush=True)
+                runs[name] = {
+                    "seconds": time.time() - t0, "save_dir": save_dir,
+                    "stdout": buf.getvalue().splitlines(),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "launches": {k: w.launches - before[k]
+                                 for k, w in wrappers.items()}}
+                preprocessors._builtin_depth_fn = None
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            cli_controlnet.make_condition = make_condition
+            preprocessors._builtin_depth_fn = None
+            if dpt_env is None:
+                os.environ.pop("ED_DPT_DIR", None)
+            else:
+                os.environ["ED_DPT_DIR"] = dpt_env
+            log = kernels.launch_log
+            kernels.launch_log = None
+        totals = {k: w.launches for k, w in wrappers.items()}
+        plain_calls = {k: d.plain_cuda_calls for k, d in plain.items()}
+
+        # the two CLI requests on the source bundle, the CLI's runtime
+        bundle.set_conv_impl(cli.runtime_config(
+            cli.build_parser().parse_args(argvs["cli"])).conv_impl)
+        try:
+            for name in ("cli", "cli_controlnet"):
+                opt = cli.build_parser(name != "cli").parse_args(argvs[name])
+                ref = ElasticDiffusion(
+                    device="cuda", bundle=bundle, sd_version=opt.sd_version,
+                    runtime=cli.runtime_config(opt), verbose=opt.verbose,
+                    log_freq=opt.log_freq, low_vram=opt.low_vram,
+                    view_batch_size=opt.view_batch_size)
+                ref.seed_everything(opt.seed)
+                kw = cli.request_kwargs(opt)
+                if name == "cli_controlnet":
+                    # the condition alone (the DPT in fp32, cuDNN convs):
+                    # its seconds and its peak above what is resident
+                    torch.cuda.synchronize()
+                    resident = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.time()
+                    cond = cli_controlnet.make_condition(opt, ref,
+                                                         make_depth_fn(dpt))
+                    torch.cuda.synchronize()
+                    runs[name]["condition_seconds"] = time.time() - t0
+                    runs[name]["condition_peak_above_resident"] = \
+                        torch.cuda.max_memory_allocated() - resident
+                    runs[name]["condition_equal"] = bool(
+                        len(conditions) == 1
+                        and np.array_equal(cond, conditions[0]))
+                    runs[name]["condition_std"] = float(cond.std())
+                    runs[name]["controlnet_residual_rms_first_step"] = \
+                        residual_rms
+                    kw.update(condition_image=cond,
+                              controlnet_conditioning_scale=
+                              opt.controlnet_conditioning_scale)
+                imgs, _ = ref.generate_image(**kw)
+                want = np.asarray(imgs[0].convert("RGB"))
+                got = np.asarray(Image.open(os.path.join(
+                    runs[name]["save_dir"], "0.png")).convert("RGB"))
+                same_shape = got.shape == want.shape
+                runs[name].update(
+                    png_shape=list(got.shape),
+                    png_std=float(got.std()),
+                    equal_to_source_bundle_run=bool(
+                        same_shape and np.array_equal(got, want)),
+                    max_abs_uint8=int(np.abs(got.astype(np.int16) - want).max())
+                    if same_shape else None)
+                del ref, imgs
+        finally:
+            bundle.set_conv_impl(path["conv_impl"])
+
+        pca_dir = runs["pca_scores"]["save_dir"]
+        logged = -(-steps // PCA_LOG_FREQ)
+        pngs = {"final.png": PCA_SIZE}
+        vsf = bundle.vae_scale_factor
+        for k, size in (("direction_pca", PCA_SIZE // vsf),
+                        ("uncond_pca", PCA_SIZE // vsf),
+                        ("inter_x0", PCA_SIZE)):
+            pngs.update({f"{k}_{i}.png": size for i in range(logged)})
+        sizes = {f: Image.open(os.path.join(pca_dir, f)).size
+                 if os.path.isfile(os.path.join(pca_dir, f)) else None
+                 for f in pngs}
+        runs["pca_scores"]["pngs"] = sizes
+        runs["pca_scores"]["written"] = sorted(os.listdir(pca_dir))
+    mem_lines = [l for l in runs["pca_scores"]["stdout"]
+                 if l.startswith("[mem] cuda:")]
+    metrics = [l for l in runs["cli"]["stdout"] if l.startswith("[metrics]")]
+    for r in runs.values():
+        r.pop("save_dir")
+    unchecked = {} if checked is None else {
+        "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
+        if key not in checked}
+    out.update(runs=runs, launches=totals, plain_versions_on_cuda=plain_calls,
+               unchecked_launches=unchecked)
+    emit(out)
+    if unchecked:
+        fail(f"apps: kernels launched at shapes that no kernel case checks: "
+             f"{sorted(unchecked)}")
+    if any(plain_calls.values()):
+        fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
+    for name, r in runs.items():
+        never = [k for k in ("flash_attention", "fused_layer_norm",
+                             "fused_group_norm") if r["launches"][k] == 0]
+        if never:
+            fail(f"apps {name}: never launched: {never}")
+    for name in ("cli", "cli_controlnet"):
+        r = runs[name]
+        if not r["equal_to_source_bundle_run"]:
+            fail(f"apps {name}: its image differs from the same request on "
+                 f"the source bundle (max {r['max_abs_uint8']})")
+        if not r["png_std"] > 0:
+            fail(f"apps {name}: its image is constant")
+    cn = runs["cli_controlnet"]
+    if not (cn["condition_equal"] and cn["condition_std"] > 0):
+        fail(f"apps cli_controlnet: condition not the source DPT's or "
+             f"constant: {cn['condition_std']}")
+    if not (len(residual_rms) == 2
+            and all(v > 0 for v in residual_rms.values())):
+        fail(f"apps cli_controlnet: the ControlNet's residuals are zero at "
+             f"the first step: {residual_rms}")
+    bad = {f: s for f, s in runs["pca_scores"]["pngs"].items()
+           if s != (pngs[f], pngs[f])}
+    if bad:
+        fail(f"apps pca_scores: missing or misshapen images: {bad}")
+    if not mem_lines or not metrics:
+        fail("apps: no [mem] line from the PCA app or no [metrics] line from "
+             "the CLI")
+    return log, totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -1501,13 +1849,15 @@ def main(argv=None) -> int:
 
     logs, totals = {}, collections.Counter()
     budgets = [int(float(b)) for b in opt.chunk_budgets.split(",") if b]
-    if {"model", "requests", "decode"} & set(phases):
+    per_path = {"model", "requests", "decode"} & set(phases)
+    if per_path or "apps" in phases:
         from elasticdiffusion_tpu_torch.configs import RuntimeConfig
         from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
         from elasticdiffusion_tpu_torch.models.registry import load_bundle
         wanted = [p for p in opt.paths.split(",") if p]
         for path in PATHS:
-            if path["name"] not in wanted:
+            if path["name"] not in wanted or not (
+                    per_path or path["name"] == APPS_PATH):
                 continue
             t0 = time.time()
             bundle = load_bundle(
@@ -1538,6 +1888,12 @@ def main(argv=None) -> int:
                 logs[path["name"] + "_decode"], t = phase_decode(
                     bundle, path, checked, budgets)
                 totals.update(t)
+            if "apps" in phases and path["name"] == APPS_PATH:
+                t0 = time.time()
+                logs["apps"], t = phase_apps(bundle, path, checked, opt.steps,
+                                             opt.resampling_steps)
+                totals.update(t)
+                emit({"phase": "apps_seconds", "seconds": time.time() - t0})
             # one bundle at a time on the card
             del bundle
             gc.collect()
@@ -1581,7 +1937,7 @@ def main(argv=None) -> int:
     emit({"phase": "total", "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": listed})
-    runs = len(PATHS) + sum("decode" in p for p in PATHS)
+    runs = len(PATHS) + sum("decode" in p for p in PATHS) + 1  # + apps
     if (set(phases) != set(ALL_PHASES) or len(logs) != runs
             or CASES is not None):
         # a partial run is a tool for development, never the proof

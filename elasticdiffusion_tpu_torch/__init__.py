@@ -2,10 +2,10 @@
 
 Same sub-packages and module names as the JAX package, so each counterpart
 is found by name: ``configs``, ``sched``, ``kernels``, ``models``, ``ops``,
-``core``, ``utils``. The port imports ``torch`` and never ``jax``, ``flax`` or
-anything of the JAX package. Entry points (``load_bundle``,
-``ElasticDiffusion``) run on the GPU unless the caller passes
-``device="cpu"``.
+``core``, ``parallel``, ``apps``, ``utils``. The port imports ``torch`` and
+never ``jax``, ``flax`` or anything of the JAX package. Entry points
+(``load_bundle``, ``ElasticDiffusion``, the apps) run on the GPU unless the
+caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Condition preprocessors of the ControlNet path (canny, depth)."""
+"""The apps: the CLI and the ControlNet CLI, the PCA score visualizer, the
+two Gradio demos and the condition preprocessors of the ControlNet path."""

@@ -23,28 +23,29 @@ _builtin_depth_fn: Optional[Callable] = None
 
 def default_depth_fn() -> Callable:
     """The depth estimator ``process_condition_image`` uses when no
-    depth_fn is given: the port's DPT-large, built once, on the GPU.
+    depth_fn is given: the port's DPT, built once, on the GPU.
 
-    ``ED_DPT_DIR`` (a converted Intel/dpt-large checkpoint) raises: loading
-    checkpoints is not ported yet. ``ED_DPT_ALLOW_RANDOM=1`` opts into
-    random weights (the depth maps are structured noise). Without either it
-    raises, so that a missing checkpoint never passes silently."""
+    ``ED_DPT_DIR`` names a transformers ``DPTForDepthEstimation`` directory
+    (Intel/dpt-large), read by ``models/dpt.py``'s ``load_dpt``.
+    ``ED_DPT_ALLOW_RANDOM=1`` opts into random weights (the depth maps are
+    structured noise). Without either it raises, so that a missing
+    checkpoint never passes silently."""
     global _builtin_depth_fn
     if _builtin_depth_fn is None:
-        if os.environ.get("ED_DPT_DIR"):
-            raise NotImplementedError(
-                "ED_DPT_DIR: loading DPT checkpoints waits until checkpoint "
-                "files are part of the repository (ROADMAP.md Queue 1, "
-                "'real checkpoints')")
-        if os.environ.get("ED_DPT_ALLOW_RANDOM") != "1":
+        from ..models import dpt
+        ckpt = os.environ.get("ED_DPT_DIR")
+        if ckpt:
+            model = dpt.load_dpt(ckpt)
+        elif os.environ.get("ED_DPT_ALLOW_RANDOM") == "1":
+            warnings.warn("ED_DPT_ALLOW_RANDOM=1: a random-init depth "
+                          "estimator; its depth maps are structured noise")
+            model = dpt.random_dpt(dpt.DPT_LARGE)
+        else:
             raise RuntimeError(
                 "depth ControlNet needs DPT weights: set ED_DPT_DIR to a "
-                "converted Intel/dpt-large checkpoint directory, or set "
+                "transformers Intel/dpt-large checkpoint directory, or set "
                 "ED_DPT_ALLOW_RANDOM=1 to opt into random weights")
-        warnings.warn("ED_DPT_ALLOW_RANDOM=1: a random-init depth estimator; "
-                      "its depth maps are structured noise")
-        from ..models.dpt import DPT_LARGE, make_depth_fn, random_dpt
-        _builtin_depth_fn = make_depth_fn(random_dpt(DPT_LARGE))
+        _builtin_depth_fn = dpt.make_depth_fn(model)
     return _builtin_depth_fn
 
 

@@ -1,6 +1,22 @@
-"""Weights carried across from the JAX package's parameter trees.
+"""Weights into the port's modules: checkpoints on disk, and the JAX
+package's parameter trees.
 
-``unet_from_jax``, ``vae_from_jax``, ``clip_from_jax``,
+Checkpoints (counterpart of ``elasticdiffusion_tpu/models/convert.py``'s
+readers). ``load_state_dict`` reads the ``*.safetensors`` / ``*.bin`` /
+``*.pt`` files of one HF model directory as they are (fp16 and bf16 stay so)
+onto a device; ``hf_to_port`` makes a diffusers / transformers state dict
+loadable by name: legacy VAE attention names (``query``, ``key``, ``value``,
+``proj_attn``) become ``to_q``, ``to_k``, ``to_v``, ``to_out.0``, 1x1-conv
+shaped attention weights lose their two unit dims (the port's are
+``nn.Linear``; SD 1.x ``proj_in`` / ``proj_out`` stay 1x1 convs), and
+buffers (CLIP's ``position_ids``) and the modules a DPT depth model never
+runs are dropped. ``load_params_npz`` / ``load_converted_params`` read the
+JAX package's converted ``.npz`` trees. ``read_model`` gives one model of a
+checkpoint directory in either layout as a state dict of the port, and
+``load_into`` copies it into a module, strictly. ``save_bundle`` writes a
+bundle as a diffusers pipeline directory.
+
+Parameter trees. ``unet_from_jax``, ``vae_from_jax``, ``clip_from_jax``,
 ``controlnet_from_jax`` and ``dpt_from_jax`` take a parameter pytree of the
 JAX package (nested dicts whose leaves are numpy-convertible arrays) and
 return a ``state_dict`` for the port's module of the same model.
@@ -12,14 +28,14 @@ They reverse the layout transforms of the JAX package's checkpoint converter
 
 and its Flax names (``GroupNorm_0/scale``, ``blocks_{i}``, ``to_out``, ...).
 The port's modules are named after the diffusers / transformers checkpoint
-keys, so the result carries exactly those keys: a later loader of real
-checkpoints needs no renaming at all.
+keys, so the result carries exactly those keys.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -260,3 +276,176 @@ def dpt_from_jax(tree: Dict[str, Any],
         name, tensor = _leaf(path[-1], value)
         out[f"{key}.{name}"] = tensor
     return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on disk
+# ---------------------------------------------------------------------------
+
+def load_state_dict(model_dir: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """Every tensor of the ``*.safetensors``, ``*.bin``, ``*.pt`` and
+    ``*.pth`` files of one HF model directory, in the dtypes they are stored
+    in; files are read in name order and a later file's key wins.
+    safetensors files are read straight onto `device`, one tensor at a time;
+    torch pickles are mapped from disk and stay there until copied."""
+    sd: Dict[str, torch.Tensor] = {}
+    for fname in sorted(os.listdir(model_dir)):
+        path = os.path.join(model_dir, fname)
+        if fname.endswith(".safetensors"):
+            from safetensors.torch import load_file
+            sd.update(load_file(path, device=str(torch.device(device))))
+        elif fname.endswith((".bin", ".pt", ".pth")):
+            sd.update(torch.load(path, map_location="cpu", weights_only=True,
+                                 mmap=True))
+    if not sd:
+        raise FileNotFoundError(f"no weight files in {model_dir}")
+    return sd
+
+
+KINDS = ("unet", "vae", "clip", "controlnet", "dpt")
+_LEGACY_VAE_ATTENTION = {"query": "to_q", "key": "to_k", "value": "to_v",
+                         "proj_attn": "to_out.0"}
+_BUFFERS = ("position_ids",)
+# what transformers' DPTForDepthEstimation holds and its depth forward never
+# runs: the backbone's final LayerNorm, the first fusion layer's
+# residual_layer1
+_DPT_UNUSED = ("dpt.layernorm.", "neck.fusion_stage.layers.0.residual_layer1.")
+
+
+def hf_to_port(sd: Dict[str, torch.Tensor], kind: str) -> Dict[str, torch.Tensor]:
+    """A diffusers / transformers state dict of a model of `kind` (one of
+    ``KINDS``) under the port's names, with the variants the JAX package's
+    converter accepts: legacy VAE attention names, 1x1-conv shaped
+    attention weights (the port's are ``nn.Linear``), non-parameter buffers
+    and unused DPT modules dropped. SD 1.x ``proj_in`` / ``proj_out`` keep
+    their 4-D weights: the port keeps them as 1x1 convolutions."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    out = {}
+    for key, t in sd.items():
+        if key.rsplit(".", 1)[-1] in _BUFFERS \
+                or (kind == "dpt" and key.startswith(_DPT_UNUSED)):
+            continue
+        if kind == "vae":
+            m = re.fullmatch(r"(.*\.attentions\.0)\.(query|key|value|proj_attn)"
+                             r"\.(weight|bias)", key)
+            if m:
+                key = (f"{m.group(1)}.{_LEGACY_VAE_ATTENTION[m.group(2)]}."
+                       f"{m.group(3)}")
+        if t.dim() == 4 and tuple(t.shape[2:]) == (1, 1) \
+                and re.search(r"\.(to_q|to_k|to_v|to_out\.0)\.weight$", key):
+            t = t[:, :, 0, 0]
+        out[key] = t
+    return out
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """One ``.npz`` file of the JAX package's converter (keys are
+    '/'-joined tree paths) as a nested dict of numpy arrays."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for k in data.files:
+            node = tree
+            *parents, leaf = k.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[k]
+    return tree
+
+
+def load_converted_params(out_dir: str) -> Dict[str, Any]:
+    """Every ``.npz`` tree of a converted directory, by file name."""
+    return {f[:-4]: load_params_npz(os.path.join(out_dir, f))
+            for f in os.listdir(out_dir) if f.endswith(".npz")}
+
+
+# each model of a bundle: its file in the JAX package's converted directory
+# is '<name>.npz'; its directory in a diffusers pipeline, and its kind
+CHECKPOINT_MODELS = {"unet": ("unet", "unet"), "vae": ("vae", "vae"),
+                     "text_encoder_0": ("text_encoder", "clip"),
+                     "text_encoder_1": ("text_encoder_2", "clip"),
+                     "controlnet": ("controlnet", "controlnet")}
+_FROM_JAX = {"unet": unet_from_jax, "vae": vae_from_jax, "clip": clip_from_jax,
+             "controlnet": controlnet_from_jax}
+
+
+def checkpoint_layout(checkpoint_dir: str) -> str:
+    """'npz' for the JAX package's converted directory (``unet.npz``,
+    ``vae.npz``, ``text_encoder_{0,1}.npz``, ``controlnet.npz``), 'diffusers'
+    for an HF pipeline directory (``unet/``, ``vae/``, ``text_encoder/``,
+    ``text_encoder_2/``, ``controlnet/``). Raises FileNotFoundError, naming
+    the path, for anything else."""
+    if not os.path.isdir(checkpoint_dir):
+        raise FileNotFoundError(f"no checkpoint directory at {checkpoint_dir}")
+    if any(os.path.isfile(os.path.join(checkpoint_dir, f"{n}.npz"))
+           for n in CHECKPOINT_MODELS):
+        return "npz"
+    if any(os.path.isdir(os.path.join(checkpoint_dir, sub))
+           for sub, _ in CHECKPOINT_MODELS.values()):
+        return "diffusers"
+    raise FileNotFoundError(
+        f"{checkpoint_dir} holds neither converted files "
+        f"({', '.join(n + '.npz' for n in CHECKPOINT_MODELS)}) nor diffusers "
+        f"model directories "
+        f"({', '.join(s + '/' for s, _ in CHECKPOINT_MODELS.values())})")
+
+
+def read_model(checkpoint_dir: str, name: str,
+               device="cpu") -> Optional[Dict[str, torch.Tensor]]:
+    """Model `name` (a key of ``CHECKPOINT_MODELS``) of a checkpoint
+    directory in either layout, as a state dict under the port's names; None
+    when the directory has no file for it."""
+    sub, kind = CHECKPOINT_MODELS[name]
+    if checkpoint_layout(checkpoint_dir) == "npz":
+        path = os.path.join(checkpoint_dir, f"{name}.npz")
+        return _FROM_JAX[kind](load_params_npz(path)) \
+            if os.path.isfile(path) else None
+    path = os.path.join(checkpoint_dir, sub)
+    return hf_to_port(load_state_dict(path, device), kind) \
+        if os.path.isdir(path) else None
+
+
+@torch.no_grad()
+def load_into(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
+              where: str) -> None:
+    """Copy `sd` into every parameter and buffer of `module`, in place: each
+    tensor keeps its dtype, device and memory layout (the values are cast).
+    Strict: keys missing from `sd`, keys the module does not have and
+    shapes that differ raise ValueError naming them and `where`, before
+    anything is copied."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    if missing or unexpected:
+        show = lambda ks: f"{len(ks)} {ks[:12]}"
+        raise ValueError(f"{where}: missing keys {show(missing)}, unexpected "
+                         f"keys {show(unexpected)}")
+    for k, t in own.items():
+        if tuple(sd[k].shape) != tuple(t.shape):
+            raise ValueError(f"{where}: {k} has shape {tuple(sd[k].shape)} in "
+                             f"the checkpoint and {tuple(t.shape)} in the model")
+    for k, t in own.items():
+        t.copy_(sd[k])
+
+
+def save_bundle(bundle, out_dir: str) -> int:
+    """Write a bundle's models as a diffusers pipeline directory: ``unet/``,
+    ``vae/`` (the fp32 master), ``text_encoder/`` (and ``text_encoder_2/``)
+    and, with a ControlNet, ``controlnet/``, one safetensors file each, in
+    the dtypes the models hold. Returns the bytes written."""
+    from safetensors.torch import save_file
+    models = {"unet": bundle.unet, "vae": bundle.vae_fp32}
+    models.update({f"text_encoder_{i}": m
+                   for i, m in enumerate(bundle.text_models)})
+    if bundle.controlnet is not None:
+        models["controlnet"] = bundle.controlnet
+    written = 0
+    for name, module in models.items():
+        sub, kind = CHECKPOINT_MODELS[name]
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+        path = os.path.join(out_dir, sub, "model.safetensors" if kind == "clip"
+                            else "diffusion_pytorch_model.safetensors")
+        save_file({k: v.detach().cpu().contiguous()
+                   for k, v in module.state_dict().items()}, path)
+        written += os.path.getsize(path)
+    return written

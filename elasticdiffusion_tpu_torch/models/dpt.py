@@ -10,10 +10,14 @@ the first fusion layer has no ``residual_layer1``: it never runs.
 The JAX package computes all of it outside any Pallas kernel (its attention
 is an einsum and a softmax, its LayerNorms XLA's), so here it is plain
 PyTorch in fp32 and launches none of the port's kernels. Tensors are NCHW.
+``load_dpt`` reads a transformers ``DPTForDepthEstimation`` directory
+(``config.json`` and its weights, e.g. Intel/dpt-large) into it by name.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -23,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import linear_resize
+from .convert import hf_to_port, load_into, load_state_dict
 from .registry import build_seeded, resolve_device
 
 
@@ -209,6 +214,52 @@ def random_dpt(config: DPTDepthConfig = DPT_LARGE, generator=None,
     with torch.no_grad():
         model.dpt.embeddings.cls_token.zero_()
         model.dpt.embeddings.position_embeddings.zero_()
+    return model
+
+
+def dpt_config(model_dir: str) -> DPTDepthConfig:
+    """The config of a transformers DPT directory (its ``config.json``;
+    DPT-large's values where it is absent or silent). Only the non-hybrid
+    DPT with readout 'project' is built."""
+    path = os.path.join(model_dir, "config.json")
+    if not os.path.isfile(path):
+        return DPT_LARGE
+    with open(path) as f:
+        c = json.load(f)
+    if c.get("is_hybrid") or c.get("readout_type", "project") != "project":
+        raise ValueError(f"{model_dir}: only the non-hybrid DPT with readout "
+                         f"'project' is supported")
+    d = DPT_LARGE
+    return DPTDepthConfig(
+        hidden_size=c.get("hidden_size", d.hidden_size),
+        num_layers=c.get("num_hidden_layers", d.num_layers),
+        num_heads=c.get("num_attention_heads", d.num_heads),
+        intermediate_size=c.get("intermediate_size", d.intermediate_size),
+        patch_size=c.get("patch_size", d.patch_size),
+        image_size=c.get("image_size", d.image_size),
+        backbone_out_indices=tuple(c.get("backbone_out_indices",
+                                         d.backbone_out_indices)),
+        neck_hidden_sizes=tuple(c.get("neck_hidden_sizes",
+                                      d.neck_hidden_sizes)),
+        reassemble_factors=tuple(c.get("reassemble_factors",
+                                       d.reassemble_factors)),
+        fusion_hidden_size=c.get("fusion_hidden_size", d.fusion_hidden_size),
+        layer_norm_eps=c.get("layer_norm_eps", d.layer_norm_eps))
+
+
+def load_dpt(model_dir: str, device="cuda") -> DPTDepthModel:
+    """A transformers ``DPTForDepthEstimation`` directory as the port's DPT
+    on `device`, loaded by name and strictly (``convert.load_into``). The
+    transposed convolutions take transformers' weights as they are: both
+    are ``ConvTranspose2d``."""
+    if not os.path.isdir(model_dir):
+        raise FileNotFoundError(f"no DPT directory at {model_dir}")
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = DPTDepthModel(dpt_config(model_dir))
+    model = model.to_empty(device=dev).eval().requires_grad_(False)
+    load_into(model, hf_to_port(load_state_dict(model_dir, dev), "dpt"),
+              f"DPT in {model_dir}")
     return model
 
 

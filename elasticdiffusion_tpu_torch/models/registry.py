@@ -4,13 +4,15 @@ Counterpart of ``elasticdiffusion_tpu/models/registry.py``. A ``ModelBundle``
 holds the UNet, the VAE, the text encoders, the tokenizers and, when asked
 for, the ControlNet, and offers the forwards the pipeline calls:
 ``apply_unet``, ``apply_controlnet``, ``vae_decode``, ``vae_encode_sample``,
-``encode_text``. ``load_bundle`` builds one with seeded random weights
-directly on the device (no checkpoint files are part of the repository
-yet), for every family of ``configs.get_bundle_config``: SD 1.4 / 1.5, SD
-2.0 / 2.1 and SDXL 1.0 (two text encoders, the second tokenizer padding
-with id 0, fp32 ``force_upcast`` decode). ``runtime.conv_impl`` goes to the
-UNet and the ControlNet; the VAE's convolutions stay on cuDNN, as the JAX
-package's VAE never asks for its conv kernel. The JAX package's segmented
+``encode_text``. ``load_bundle`` builds one directly on the device, with
+seeded random weights or the weights of a checkpoint directory (the JAX
+package's converted ``.npz`` files or a diffusers pipeline directory, read
+by ``models/convert.py``), for every family of ``configs.get_bundle_config``:
+SD 1.4 / 1.5, SD 2.0 / 2.1 and SDXL 1.0 (two text encoders, the second
+tokenizer padding with id 0, fp32 ``force_upcast`` decode).
+``runtime.conv_impl`` goes to the UNet and the ControlNet; the VAE's
+convolutions stay on cuDNN, as the JAX package's VAE never asks for its conv
+kernel. The JAX package's segmented
 chain, text offload and scan restacking are TPU-runtime work and have no
 counterpart.
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import copy
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -32,6 +35,7 @@ from ..configs import (ControlNetConfig, ModelBundleConfig, RuntimeConfig,
                        get_bundle_config)
 from ..utils.tokenizer import CLIPTokenizer
 from .clip import CLIPTextModel
+from .convert import checkpoint_layout, load_into, read_model
 from .controlnet import ControlNet
 from .layers import set_conv_impl, set_use_kernels
 from .unet import UNet2DCondition
@@ -211,33 +215,55 @@ def load_bundle(sd_version: str, runtime: RuntimeConfig = RuntimeConfig(),
                 seed: int = 0,
                 bundle_config: Optional[ModelBundleConfig] = None,
                 device="cuda") -> ModelBundle:
-    """Build a ModelBundle with seeded random weights on `device`.
+    """Build a ModelBundle on `device`, with seeded random weights or, with
+    `checkpoint_dir`, the weights of that directory.
 
     `controlnet_model` ('canny' | 'depth') adds a ControlNet at the UNet's
     widths (the two conditions share one architecture). It is built after
-    every other model, so the other models' weights do not depend on it."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "loading converted checkpoints waits until checkpoint files are "
-            "part of the repository (ROADMAP.md Queue 1, 'real checkpoints')")
+    every other model, so the other models' weights do not depend on it.
+
+    `checkpoint_dir` is the JAX package's converted directory (``unet.npz``,
+    ``vae.npz``, ``text_encoder_{0,1}.npz``, ``controlnet.npz``) or a
+    diffusers pipeline directory (``unet/``, ``vae/``, ``text_encoder/``,
+    ``text_encoder_2/``, ``controlnet/``). Each model is loaded strictly
+    (``convert.load_into``) and cast as the JAX package casts it: the UNet,
+    the text encoders and the ControlNet to ``runtime.param_dtype``, the VAE
+    to its fp32 master, from which the compute copy is made. A model whose
+    file is absent keeps its seeded init, with a warning."""
     cfg = bundle_config or get_bundle_config(sd_version)
     dev = resolve_device(device)
+    if checkpoint_dir is not None:
+        checkpoint_layout(checkpoint_dir)  # a wrong path fails before any work
     gen = torch.Generator(device=dev).manual_seed(seed)
     uk = runtime.use_kernels
+
+    def load(name: str, module: nn.Module) -> None:
+        if checkpoint_dir is None:
+            return
+        sd = read_model(checkpoint_dir, name, dev)
+        if sd is None:
+            warnings.warn(f"{checkpoint_dir} has no weights for {name}: it "
+                          f"keeps its seeded random init")
+        else:
+            load_into(module, sd, f"{name} in {checkpoint_dir}")
 
     unet = build_seeded(lambda: UNet2DCondition(cfg.unet, use_kernels=uk),
                         dev, gen)
     unet = unet.to(dtype=runtime.param_dtype,
                    memory_format=torch.channels_last)
+    load("unet", unet)
     set_conv_impl(unet, runtime.conv_impl)
     vae_fp32 = build_seeded(lambda: AutoencoderKL(cfg.vae, use_kernels=uk),
                             dev, gen)
     vae_fp32 = vae_fp32.to(memory_format=torch.channels_last)
+    load("vae", vae_fp32)
     vae = _to_compute(vae_fp32, runtime.compute_dtype)
-    text_models = tuple(
-        build_seeded(lambda tc=tc: CLIPTextModel(tc, use_kernels=uk), dev,
-                     gen)
-        .to(dtype=runtime.param_dtype) for tc in cfg.text_encoders)
+    text_models = []
+    for i, tc in enumerate(cfg.text_encoders):
+        model = build_seeded(lambda tc=tc: CLIPTextModel(tc, use_kernels=uk),
+                             dev, gen).to(dtype=runtime.param_dtype)
+        load(f"text_encoder_{i}", model)
+        text_models.append(model)
     controlnet = None
     if controlnet_model is not None:
         cn_cfg = ControlNetConfig(unet=cfg.unet,
@@ -246,6 +272,7 @@ def load_bundle(sd_version: str, runtime: RuntimeConfig = RuntimeConfig(),
             lambda: ControlNet(cn_cfg, use_kernels=uk), dev, gen)
         controlnet = controlnet.to(dtype=runtime.param_dtype,
                                    memory_format=torch.channels_last)
+        load("controlnet", controlnet)
         set_conv_impl(controlnet, runtime.conv_impl)
 
     if tokenizer_dirs is None:
@@ -258,5 +285,6 @@ def load_bundle(sd_version: str, runtime: RuntimeConfig = RuntimeConfig(),
         for i, td in enumerate(tokenizer_dirs))
 
     return ModelBundle(config=cfg, runtime=runtime, device=dev, unet=unet,
-                       vae=vae, vae_fp32=vae_fp32, text_models=text_models,
+                       vae=vae, vae_fp32=vae_fp32,
+                       text_models=tuple(text_models),
                        tokenizers=tokenizers, controlnet=controlnet)

@@ -1,2 +1,2 @@
-"""Utilities: the CLIP tokenizer, image assembly helpers and wall-clock
-timing (``timeit``)."""
+"""Utilities: the CLIP tokenizer, image assembly helpers, wall-clock
+timing (``timeit``) and the analytic cost model (``flops``)."""

@@ -20,7 +20,8 @@ TARGETS = ["elasticdiffusion_tpu_torch"] + MODULES + ["chip_smoke"]
 
 PROBE = """
 import importlib, json, sys
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'elasticdiffusion_tpu', 'triton')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'elasticdiffusion_tpu', 'triton',
+             'gradio', 'sklearn')
 report = {}
 for name in json.loads(sys.argv[1]):
     try:
@@ -48,9 +49,11 @@ def test_the_walk_finds_the_new_modules():
     assert "elasticdiffusion_tpu_torch.kernels.conv3x3" in MODULES
     assert "elasticdiffusion_tpu_torch.models.registry" in MODULES
     for name in ("models.controlnet", "models.dpt", "apps.preprocessors",
-                 "parallel.halo_decode", "core.entry", "utils.timeit"):
+                 "parallel.halo_decode", "core.entry", "utils.timeit",
+                 "apps.cli", "apps.cli_controlnet", "apps.pca_scores",
+                 "apps.gradio_app", "apps.gradio_img2img", "utils.flops"):
         assert f"elasticdiffusion_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 37
+    assert len(MODULES) >= 43
 
 
 @pytest.mark.parametrize("name", TARGETS)

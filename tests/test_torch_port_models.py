@@ -11,7 +11,7 @@ from elasticdiffusion_tpu.models.convert import (
     convert_clip, convert_unet, convert_vae)
 from elasticdiffusion_tpu_torch import configs as tcfg
 from elasticdiffusion_tpu_torch.models.convert import (
-    clip_from_jax, unet_from_jax, vae_from_jax)
+    clip_from_jax, save_bundle, unet_from_jax, vae_from_jax)
 from elasticdiffusion_tpu_torch.models.registry import load_bundle
 from torch_port_common import (TORCH_TOY_RUNTIME, max_abs, port_bundle_config,
                                t2n, to_numpy_tree, toy_bundles)
@@ -140,7 +140,7 @@ def test_full_width_state_dict_keys_follow_diffusers_names():
     assert 2.5e9 < sum(p.numel() for p in sdxl.parameters()) < 2.6e9
 
 
-def test_bundle_entry_points_and_device_rule():
+def test_bundle_entry_points_and_device_rule(tmp_path):
     jb, tb = toy_bundles()
     assert (tb.vae_scale_factor, tb.sample_size, tb.in_channels) == \
         (jb.vae_scale_factor, jb.sample_size, jb.in_channels)
@@ -150,9 +150,17 @@ def test_bundle_entry_points_and_device_rule():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # a checkpoint directory that is not there is named; one that is loads
+    with pytest.raises(FileNotFoundError, match="/nowhere"):
         load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg,
                     device="cpu", checkpoint_dir="/nowhere")
+    save_bundle(tb, str(tmp_path))
+    loaded = load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg,
+                         device="cpu", checkpoint_dir=str(tmp_path), seed=1)
+    for a, b in ((tb.unet, loaded.unet), (tb.vae_fp32, loaded.vae_fp32),
+                 (tb.text_models[0], loaded.text_models[0])):
+        for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            assert torch.equal(x, y), k
     # a ControlNet bundle: the other models' weights do not depend on it
     plain = load_bundle("toy", TORCH_TOY_RUNTIME, bundle_config=cfg,
                         device="cpu", seed=1)

@@ -155,15 +155,29 @@ def test_later_slices_raise_not_implemented(kwargs, tmp_path):
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
                                     dict(low_vram=True),
-                                    dict(bundle=None, sd_version="1.5",
-                                         checkpoint_dir="/nowhere")],
+                                    dict(bundle=None, sd_version="toy",
+                                         checkpoint_dir="toy checkpoint")],
                          ids=["mesh", "low_vram", "checkpoint_dir"])
-def test_later_slices_raise_in_constructor(kwargs):
-    """A mesh and checkpoint_dir still raise; low_vram (which shapes the
-    tiled decode) is accepted since the decode at large sizes is ported."""
+def test_later_slices_raise_in_constructor(kwargs, monkeypatch, tmp_path):
+    """A mesh still raises; low_vram (which shapes the tiled decode) is
+    accepted since the decode at large sizes is ported, and checkpoint_dir
+    since loading checkpoints is: the constructor loads a toy checkpoint
+    directory (its bundle config handed to load_bundle here)."""
+    import elasticdiffusion_tpu_torch.core.pipeline as tpipe
+    from elasticdiffusion_tpu_torch.models.convert import save_bundle
+    from torch_port_common import TORCH_TOY_RUNTIME
     _, tb = toy_bundles()
     if "low_vram" in kwargs:
         assert TElastic(bundle=tb, device="cpu", **kwargs).low_vram
+    elif "checkpoint_dir" in kwargs:
+        save_bundle(tb, str(tmp_path))
+        kwargs = dict(kwargs, checkpoint_dir=str(tmp_path))
+        load = tpipe.load_bundle
+        monkeypatch.setattr(tpipe, "load_bundle", lambda *a, **k: load(
+            *a, bundle_config=tb.config, seed=1, **k))
+        pipe = TElastic(device="cpu", runtime=TORCH_TOY_RUNTIME, **kwargs)
+        for a, b in zip(pipe.bundle.unet.parameters(), tb.unet.parameters()):
+            assert torch.equal(a, b)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TElastic(**{"bundle": tb, "device": "cpu", **kwargs})

@@ -88,12 +88,29 @@ def test_process_condition_image_equals_jax():
         tpre.process_condition_image(img, "pose")
 
 
-def test_default_depth_fn_needs_weights(monkeypatch):
+def test_default_depth_fn_needs_weights(monkeypatch, tmp_path):
+    """ED_DPT_DIR names a transformers DPT directory: a missing one is named,
+    a tiny one loads (on the CPU here); without it or ED_DPT_ALLOW_RANDOM
+    the depth function raises."""
+    import transformers
+    from elasticdiffusion_tpu_torch.models import dpt as tdpt
     monkeypatch.setattr(tpre, "_builtin_depth_fn", None)
     monkeypatch.delenv("ED_DPT_ALLOW_RANDOM", raising=False)
     monkeypatch.setenv("ED_DPT_DIR", "/nowhere")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(FileNotFoundError, match="/nowhere"):
         tpre.default_depth_fn()
+    transformers.DPTForDepthEstimation(transformers.DPTConfig(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+        intermediate_size=64, image_size=64, patch_size=16,
+        backbone_out_indices=[0, 0, 1, 1], neck_hidden_sizes=[16, 24, 32, 32],
+        fusion_hidden_size=24)).save_pretrained(str(tmp_path))
+    load = tdpt.load_dpt
+    monkeypatch.setattr(tdpt, "load_dpt",
+                        lambda d, device="cuda": load(d, device="cpu"))
+    monkeypatch.setenv("ED_DPT_DIR", str(tmp_path))
+    depth = tpre.default_depth_fn()(np.zeros((20, 30, 3), np.uint8))
+    assert depth.shape == (20, 30) and np.isfinite(depth).all()
+    monkeypatch.setattr(tpre, "_builtin_depth_fn", None)
     monkeypatch.delenv("ED_DPT_DIR")
     with pytest.raises(RuntimeError, match="ED_DPT_ALLOW_RANDOM"):
         tpre.default_depth_fn()
