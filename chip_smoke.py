@@ -15,6 +15,10 @@
                                               # budgets
     python3 chip_smoke.py --phases device,build,kernels,apps
                                               # checkpoints and the apps
+    python3 chip_smoke.py --phases device,build,kernels,mesh \
+        --cases 'sdxl_bfloat16_[41]x|_1x(128|256|512|64)x|32768'
+                                              # two ranks: the elastic step
+                                              # and the halo decode split
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -72,6 +76,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
             the branch halo_decode's default choice takes there, launches
             checked as for a path; fails when a halo route is further than
             DECODE_TOL_REL_L2 from decode_latents
+  mesh      SDXL 1.0 (the sdxl path's bundle and perturbation) on a (1, 2)
+            mesh of two spawned ranks (both on cuda:0 under gloo on one
+            GPU, one GPU a rank under NCCL on two), one request at
+            1024x2048 px with tiled_decoder=True: each rank runs half of
+            every UNet batch (a forward hook counts the rows) and one band
+            of the halo decode's stage b. Fails unless the ranks' final
+            latents, images and mesh decodes are bitwise equal, the final
+            latent is within E2E_TOL_REL_L2 of the same request on one GPU
+            (rank 0), the mesh decode within MESH_DECODE_TOL_REL_L2 of
+            decode_latents, and each rank's launches pass the requests
+            phase's checks. Prints per rank the collective inventory (counts,
+            bytes, routes), peak bytes, denoise and decode seconds: with two
+            ranks on one card these are not a speed
 
 Every bundle's biases and norm weights (the ControlNet's and the DPT's
 too) are moved off their seeded init (`perturb_bundle`) as soon as it
@@ -109,7 +126,14 @@ PEAK_OPS_PER_S = {torch.bfloat16: H100_BF16_TFLOPS * 1e12,
                   torch.float32: H100_FP32_TFLOPS * 1e12}
 
 ALL_PHASES = ("device", "build", "kernels", "model", "requests", "decode",
-              "apps")
+              "apps", "mesh")
+
+# The mesh phase: SDXL 1.0 at 1024x2048 px on a (1, MESH_WORLD) mesh. Its
+# UNet batches (direction 8 rows, repaint direction 2, 4 views) split into
+# MESH_BATCHES rows a rank; its 128x256 latent splits into MESH_WORLD bands
+MESH_WORLD = 2
+MESH_BATCHES = (4, 1)
+MESH_LATENT = (128, 256)
 
 
 LOG_PATH = None  # --log: every emitted line is also appended to this file
@@ -231,10 +255,12 @@ def attention_cases():
         for B in (8, 2, 3, 9):
             cases.append(("self", bf, B, S, S, H, D))
             cases.append(("cross", bf, B, S, 77, H, D))
-    # the SDXL 2048x2048 request runs its 16 views in one batch
+    # the SDXL 2048x2048 request runs its 16 views in one batch; each rank
+    # of the mesh phase runs 4 and 1 rows
     for S, H, D in ((4096, 10, 64), (1024, 20, 64)):
-        cases.append(("self", bf, 16, S, S, H, D))
-        cases.append(("cross", bf, 16, S, 77, H, D))
+        for B in (16,) + MESH_BATCHES:
+            cases.append(("self", bf, B, S, S, H, D))
+            cases.append(("cross", bf, B, S, 77, H, D))
     cases.append(("vae_mid", bf, 1, 6144, 6144, 1, 512))
     cases.append(("vae_mid", bf, 1, 9216, 9216, 1, 512))
     # the apps phase's PCA app decodes SD 1.5 at 512x512 px
@@ -250,6 +276,8 @@ def attention_cases():
     # SDXL at 2048x2048 px: 256x256 tokens (its plain version runs in query
     # blocks: the whole logit matrix would take 17 GB)
     cases.append(("vae_mid", f32, 1, 65536, 65536, 1, 512))
+    # SDXL at 1024x2048 px, the mesh phase: 128x256 tokens on every rank
+    cases.append(("vae_mid", f32, 1, 32768, 32768, 1, 512))
     cases.append(("vae_strip", f32, 1, 2688, 2688, 1, 512))
     cases.append(("vae_strip", f32, 1, 2816, 2816, 1, 512))
     for D in (40, 80, 160):  # the fp32 instantiations, on no path today
@@ -372,11 +400,13 @@ def layernorm_cases():
     """(tag, dtype, weight dtype, eps, N, C) of every LayerNorm the paths
     launch: the UNet transformer blocks (tokens x width, times the batches
     the requests give: 8, 2, 3 and 9 as for attention, 16 for SDXL at
-    2048x2048; SD 1.5's 512x768 request has 3 views) and the text encoders' 77 tokens. Both keep their
+    2048x2048, 4 and 1 on a rank of the mesh phase; SD 1.5's 512x768
+    request has 3 views) and the text encoders' 77 tokens. Both keep their
     weights in the bf16 parameter dtype and use eps 1e-5 (LayerNorm32's
     default, CLIPTextConfig.layer_norm_eps). Every case is timed in full."""
     bf = torch.bfloat16
-    unet = (("sdxl", ((4096, 640), (1024, 1280)), (8, 2, 3, 9, 16)),
+    unet = (("sdxl", ((4096, 640), (1024, 1280)),
+             (8, 2, 3, 9, 16) + MESH_BATCHES),
             ("sd15", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
              (8, 2, 3)),
             ("sd21", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
@@ -449,7 +479,8 @@ def groupnorm_cases():
     GroupNorm the paths launch, with the weight dtype and eps of the module
     that launches it: the UNet's ResNet norms (SiLU, eps 1e-5) and
     Transformer2D norms (no SiLU, eps 1e-6), bf16 weights, at the batches
-    the requests give (16: the SDXL 2048x2048 request's views); the VAE decoders (bf16 activations with the fp32 norm
+    the requests give (16: the SDXL 2048x2048 request's views; 4 and 1: a
+    rank of the mesh phase); the VAE decoders (bf16 activations with the fp32 norm
     weights of the compute copy for SD 1.x / 2.x, fp32 for the SDXL
     force_upcast decode) and the fp32 background-strip encodes, all eps 1e-6.
     `full` (timed in full): batch 8, and every VAE shape."""
@@ -473,7 +504,7 @@ def groupnorm_cases():
             cases.append((tag, dtype, w_dtype, eps, B, H, W, C, silu,
                           B == 1 or B == 8))
 
-    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9, 16)),
+    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9, 16) + MESH_BATCHES),
                                  ("sd15", sd, (8, 2, 3)),
                                  ("sd21", sd, (8, 2, 3, 9))):
         for S, C, silu in shapes:
@@ -482,17 +513,20 @@ def groupnorm_cases():
     # decoders at latent (h, w): mid block (and its attention's norm), the
     # four up blocks, norm_out. SD 1.x / 2.x bf16 at 512x768 and 768x768
     # px, SD 2.1's low_vram tiles (48x48 latents) and the apps phase's PCA
-    # app at 512x512 px; SDXL fp32 at 1024x1536, 1536x1536 and 2048x2048 px
+    # app at 512x512 px; SDXL fp32 at 1024x1536, 1536x1536, 2048x2048 px
+    # and 1024x2048 px (the mesh phase: stage a on every rank)
     for dtype, latents in ((bf, ((64, 96), (96, 96), (48, 48), (64, 64))),
-                           (f32, ((128, 192), (192, 192), (256, 256)))):
+                           (f32, ((128, 192), (192, 192), (256, 256),
+                                  MESH_LATENT))):
         for h, w in latents:
             for k, C, silu in ((1, 512, F_), (1, 512, T), (2, 512, T),
                                (4, 512, T), (4, 256, T), (8, 256, T),
                                (8, 128, T)):
                 add("vae_decode", dtype, f32, 1e-6, 1, k * h, k * w, C, silu)
     # fp32 encoders of the background strips (image rows x width): SD 1.x /
-    # 2.x 88x512, SDXL 168x1024 and 176x1024
-    for H, W in ((88, 512), (168, 1024), (176, 1024)):
+    # 2.x 88x512, SDXL 168x1024, 176x1024 and 256x1024 (the mesh phase's
+    # 1024x2048 px request, on every rank)
+    for H, W in ((88, 512), (168, 1024), (176, 1024), (256, 1024)):
         for k, C, silu in ((1, 128, T), (2, 128, T), (2, 256, T), (4, 256, T),
                            (4, 512, T), (8, 512, F_), (8, 512, T)):
             add("vae_encode", f32, f32, 1e-6, 1, H // k, W // k, C, silu)
@@ -589,18 +623,21 @@ def halves_cases():
     """(half, dtype, B, H, W, C) of every launch of group_norm_sums and
     group_norm_apply (SiLU: every apply of the decoder is followed by one)
     in the streamed decodes of the decode phase (the paths' "decode"
-    latents), in the VAE's decode dtype, from
-    parallel/halo_decode.py's own enumeration; the decode phase confirms
-    them against its launch log."""
+    latents) and on a rank of the mesh phase's decode, in the VAE's decode
+    dtype, from parallel/halo_decode.py's own enumerations; the decode and
+    mesh phases confirm them against their launch logs."""
     from elasticdiffusion_tpu_torch.configs import get_bundle_config
     from elasticdiffusion_tpu_torch.parallel.halo_decode import (
-        streamed_norm_shapes)
+        mesh_norm_shapes, streamed_norm_shapes)
     cases = []
-    for version, (h, w) in ((p["sd_version"], p["decode"]) for p in PATHS
-                            if "decode" in p):
+    runs = [(p["sd_version"], streamed_norm_shapes, p["decode"]) for p in PATHS
+            if "decode" in p]
+    runs.append(("XL1.0", lambda cfg, B, h, w: mesh_norm_shapes(
+        cfg, B, h, w, MESH_WORLD), MESH_LATENT))
+    for version, shapes, (h, w) in runs:
         cfg = get_bundle_config(version).vae
         dtype = torch.float32 if cfg.force_upcast else torch.bfloat16
-        for half, shape, _ in streamed_norm_shapes(cfg, 1, h, w):
+        for half, shape, _ in shapes(cfg, 1, h, w):
             if (half, dtype) + shape not in cases:
                 cases.append((half, dtype) + shape)
     return cases
@@ -671,8 +708,9 @@ def conv_cases():
     # the batches the requests give the UNet: 8 (resampled direction
     # forwards and the model check), 2 (cond/uncond direction forwards), 3
     # and 9 (the view batches of a 2:3 and a square SDXL image; SD 1.5's
-    # 512x768 request has 3 views), 16 (the SDXL 2048x2048 request's views)
-    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9, 16)),
+    # 512x768 request has 3 views), 16 (the SDXL 2048x2048 request's
+    # views), 4 and 1 (a rank of the mesh phase)
+    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9, 16) + MESH_BATCHES),
                                  ("sd15", sd15, (8, 2, 3))):
         for S, C, O in shapes:
             for B in batches:
@@ -1788,6 +1826,252 @@ def phase_apps(bundle, path, checked=None, steps: int = 4,
     return log, totals
 
 
+# ---------------------------------------------------------------------------
+# mesh: the elastic step and the halo decode split over two ranks
+# ---------------------------------------------------------------------------
+
+MESH_PATH = {"name": "mesh", "sd_version": "XL1.0", "conv_impl": "kernel",
+             "requests": ({"height": MESH_LATENT[0] * 8,
+                           "width": MESH_LATENT[1] * 8,
+                           "tiled_decoder": True},)}
+# seconds the ranks may take, set-up included; a rank's collectives give up
+# after MESH_COLLECTIVE_SECONDS, so that one rank's failure fails the others
+MESH_SECONDS, MESH_COLLECTIVE_SECONDS = 600, 300
+# the mesh decode against decode_latents on the same latent: fp32, TF32 off,
+# the bands' GroupNorm sums added in another order (the decode phase's bar)
+MESH_DECODE_TOL_REL_L2 = 1e-4
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(torch.as_tensor(t).contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def mesh_rank(rank: int, world: int, backend: str, tmp: str, seed: int,
+              steps: int, resampling: int) -> None:
+    """One rank of the mesh phase (the target of a spawned process): the
+    SDXL bundle of the sdxl path, perturbed from the same seed, on a
+    (1, world) mesh; one request with the launch counts set to 0 just
+    before and read just after; the mesh decode of its final latent again,
+    raw; on rank 0 also decode_latents of that latent and the same request
+    on one GPU. Writes what the parent checks to rank{rank}.json; a
+    failure raises, and the process prints its traceback and exits 1."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+    import elasticdiffusion_tpu_torch.kernels as kernels
+    from elasticdiffusion_tpu_torch.configs import RuntimeConfig
+    from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
+    from elasticdiffusion_tpu_torch.models.registry import load_bundle
+    from elasticdiffusion_tpu_torch.parallel import halo_decode as hd
+    from elasticdiffusion_tpu_torch.parallel.sharding import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group(
+        backend, store=dist.FileStore(f"{tmp}/store", world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_SECONDS))
+    try:
+        mesh = make_mesh((1, world), backend=backend)
+        t0 = time.time()
+        bundle = load_bundle("XL1.0", seed=seed, device="cuda",
+                             runtime=RuntimeConfig(conv_impl="kernel"))
+        perturb_bundle(bundle, seed + 1)
+        pipe = ElasticDiffusion(device="cuda", bundle=bundle, mesh=mesh,
+                                sd_version="XL1.0")
+        torch.cuda.synchronize()
+        load_seconds = time.time() - t0
+        req = MESH_PATH["requests"][0]
+        rows = []
+        hook = bundle.unet.register_forward_pre_hook(
+            lambda m, args: rows.append(int(args[0].shape[0])))
+        convs = gate_convs(bundle.unet)
+        wrappers, plain = kernel_counts(), plain_cuda_counts()
+        for w in wrappers.values():
+            w.launches = 0
+        for d in plain.values():
+            d.plain_cuda_calls = 0
+        for m in convs:
+            m.library_cuda_calls = 0
+        kernels.launch_log = collections.Counter()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        imgs, info, _ = generate(pipe, MESH_PATH, req, steps, resampling, 0)
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        log = kernels.launch_log
+        kernels.launch_log = None
+        hook.remove()
+        out = {"rank": rank, "device": str(torch.device(
+                   "cuda", torch.cuda.current_device())),
+               "load_seconds": load_seconds, "wall_seconds": wall,
+               "peak_bytes": peak, "unet_rows": rows,
+               "launches": {n: w.launches for n, w in wrappers.items()},
+               "plain_versions_on_cuda": {n: d.plain_cuda_calls
+                                          for n, d in plain.items()},
+               "conv3x3_expected_launches": len(convs) * len(rows),
+               "cudnn_calls_in_gate": sum(m.library_cuda_calls
+                                          for m in convs),
+               "launch_log": [[list(k), n] for k, n in log.items()],
+               "last_metrics": pipe.last_metrics,
+               "image_shape": list(imgs.shape),
+               "image_finite": bool(torch.isfinite(torch.as_tensor(
+                   imgs)).all()),
+               "digests": {"latent": _digest(info["latent"]),
+                           "image": _digest(imgs)}}
+        lat = torch.as_tensor(info["latent"], device="cuda")
+        z = lat / bundle.config.vae.scaling_factor
+        raw = hd.halo_decode(bundle, z, mesh=mesh)
+        out["digests"]["mesh_decode"] = _digest(raw)
+        if rank == 0:
+            out["decode_rel_l2"] = rel_l2(raw, bundle.vae_decode(z))
+            del raw
+            one = ElasticDiffusion(device="cuda", bundle=bundle,
+                                   sd_version="XL1.0")
+            one_rows = []
+            hook = bundle.unet.register_forward_pre_hook(
+                lambda m, args: one_rows.append(int(args[0].shape[0])))
+            _, one_info, _ = generate(one, MESH_PATH, req, steps, resampling, 0)
+            hook.remove()
+            out["one_gpu_rows"] = one_rows
+            out["one_gpu_metrics"] = one.last_metrics
+            out["rel_l2_to_one_gpu"] = rel_l2(
+                torch.as_tensor(info["latent"]),
+                torch.as_tensor(one_info["latent"]))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def phase_mesh(seed: int, steps: int, resampling: int, smi: str,
+               checked=None):
+    """The mesh phase. Two ranks, each a spawned process: on one GPU both on
+    cuda:0 under gloo (NCCL takes one rank a device), on two or more one
+    GPU a rank under NCCL. The parent releases its CUDA cache first, joins
+    the ranks within MESH_SECONDS (a rank that exits non-zero or outlives
+    it fails the run; its traceback is on stderr) and checks: the ranks'
+    final latents, images and mesh decodes bitwise equal; the final latent
+    within E2E_TOL_REL_L2 of the same request on one GPU; the mesh decode
+    within MESH_DECODE_TOL_REL_L2 of decode_latents; each rank's UNet rows
+    the padded one-GPU rows / MESH_WORLD at every call; each rank's
+    launches as on a path of the requests phase."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    gpus = torch.cuda.device_count()
+    backend = "nccl" if gpus >= MESH_WORLD else "gloo"
+    world = MESH_WORLD
+    emit({"phase": "mesh_ranks", "backend": backend, "world_size": world,
+          "devices": [f"cuda:{r % gpus}" for r in range(world)]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=mesh_rank, args=(
+            r, world, backend, tmp, seed, steps, resampling))
+            for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, t0 + MESH_SECONDS - time.time()))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if late or any(codes):
+            fail(f"mesh: ranks {late} outlived {MESH_SECONDS} s; exit codes "
+                 f"{codes} (tracebacks above, on stderr)")
+        ranks = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    seconds = time.time() - t0
+    first = ranks[0]
+    one_rows = first["one_gpu_rows"]
+    padded = [n + (-n) % world for n in one_rows]
+    log = collections.Counter()
+    for r in ranks:
+        for key, n in r["launch_log"]:
+            log[tuple(key)] += n
+    unchecked = {} if checked is None else {
+        "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
+        if key not in checked}
+    totals = collections.Counter()
+    for r in ranks:
+        totals.update(r["launches"])
+    per_rank = [{k: r[k] for k in (
+        "rank", "device", "load_seconds", "wall_seconds", "peak_bytes",
+        "launches", "plain_versions_on_cuda", "conv3x3_expected_launches",
+        "cudnn_calls_in_gate", "unet_rows", "image_shape", "digests")}
+        | {"denoise_seconds": r["last_metrics"]["denoise_seconds"],
+           "decode_seconds": r["last_metrics"]["decode_seconds"],
+           "collectives": r["last_metrics"]["collectives"]}
+        for r in ranks]
+    emit({"phase": "mesh", "nvidia_smi": smi, "backend": backend,
+          "world_size": world, "mesh": [1, world], "request": MESH_PATH[
+              "requests"][0], "steps": steps, "resampling_steps": resampling,
+          "seconds": seconds, "ranks": per_rank,
+          "one_gpu_rows": one_rows, "padded_rows": padded,
+          "one_gpu_denoise_seconds": first["one_gpu_metrics"][
+              "denoise_seconds"],
+          "one_gpu_decode_seconds": first["one_gpu_metrics"][
+              "decode_seconds"],
+          "rel_l2_to_one_gpu": first["rel_l2_to_one_gpu"],
+          "tolerance_rel_l2": E2E_TOL_REL_L2,
+          "decode_rel_l2": first["decode_rel_l2"],
+          "decode_tolerance_rel_l2": MESH_DECODE_TOL_REL_L2,
+          "unchecked_launches": unchecked,
+          "note": "two ranks sharing one card when the backend is gloo: "
+                  "the seconds are not a speed"})
+    if unchecked:
+        fail(f"mesh: kernels launched at shapes that no kernel case checks: "
+             f"{sorted(unchecked)}")
+    for r in ranks:
+        name = f"mesh rank {r['rank']}"
+        if any(r["plain_versions_on_cuda"].values()):
+            fail(f"{name}: a plain version stood in for a kernel on the GPU: "
+                 f"{r['plain_versions_on_cuda']}")
+        never = [n for n, c in r["launches"].items() if c == 0]
+        if never:
+            fail(f"{name}: never launched: {never}")
+        if r["launches"]["conv3x3"] != r["conv3x3_expected_launches"] \
+                or r["cudnn_calls_in_gate"]:
+            fail(f"{name}: conv3x3 launched {r['launches']['conv3x3']} times "
+                 f"for {r['conv3x3_expected_launches']}, nn.Conv2d.forward "
+                 f"{r['cudnn_calls_in_gate']} times in the gate")
+        if r["unet_rows"] != [n // world for n in padded]:
+            fail(f"{name}: UNet rows {r['unet_rows']}, not the padded rows "
+                 f"{padded} / {world}")
+        if r["digests"] != first["digests"]:
+            fail(f"{name}: not bitwise equal to rank 0: {r['digests']} "
+                 f"against {first['digests']}")
+        if r["image_shape"] != [1, 3, MESH_LATENT[0] * 8,
+                                MESH_LATENT[1] * 8] or not r["image_finite"]:
+            fail(f"{name}: image {r['image_shape']}, finite "
+                 f"{r['image_finite']}")
+    if [sum(r["unet_rows"][i] for r in ranks) for i in range(len(padded))] \
+            != padded or not all(a < b for a, b in zip(first["unet_rows"],
+                                                        one_rows)):
+        fail(f"mesh: the ranks' rows do not add up to the padded rows "
+             f"{padded}, or a rank ran a whole batch")
+    if not first["rel_l2_to_one_gpu"] <= E2E_TOL_REL_L2:
+        fail(f"mesh: final latent {first['rel_l2_to_one_gpu']} rel L2 from "
+             f"the one-GPU run, over {E2E_TOL_REL_L2}")
+    if not first["decode_rel_l2"] <= MESH_DECODE_TOL_REL_L2:
+        fail(f"mesh: mesh decode {first['decode_rel_l2']} rel L2 from "
+             f"decode_latents, over {MESH_DECODE_TOL_REL_L2}")
+    return log, totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -1898,6 +2182,12 @@ def main(argv=None) -> int:
             del bundle
             gc.collect()
             torch.cuda.empty_cache()
+    if "mesh" in phases:
+        t0 = time.time()
+        logs["mesh"], t = phase_mesh(opt.seed, opt.steps,
+                                     opt.resampling_steps, smi, checked)
+        totals.update(t)
+        emit({"phase": "mesh_seconds", "seconds": time.time() - t0})
 
     listed = []
     if "kernels" in phases and "requests" in phases:
@@ -1937,7 +2227,7 @@ def main(argv=None) -> int:
     emit({"phase": "total", "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"kernels": listed})
-    runs = len(PATHS) + sum("decode" in p for p in PATHS) + 1  # + apps
+    runs = len(PATHS) + sum("decode" in p for p in PATHS) + 2  # apps, mesh
     if (set(phases) != set(ALL_PHASES) or len(logs) != runs
             or CASES is not None):
         # a partial run is a tool for development, never the proof

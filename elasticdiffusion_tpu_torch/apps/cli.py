@@ -6,11 +6,14 @@ the same output directory. ``--checkpoint_dir`` takes the JAX package's
 converted directory or a diffusers pipeline directory
 (``models/registry.py``'s ``load_bundle``); ``--fp32`` runs fp32 weights and
 compute instead of bf16; ``--low_vram`` is the pipeline's ``low_vram``. There
-is no compilation cache to enable, and ``--mesh`` other than ``1x1`` raises:
-multi-GPU is not ported.
+is no compilation cache to enable. ``--mesh DxV`` runs on a (data, views)
+mesh of D*V processes, one GPU each, started by ``torchrun``; only the
+mesh's first rank writes the images and ``args.txt``.
 
     python -m elasticdiffusion_tpu_torch.apps.cli --sd_version 1.5 \\
         --checkpoint_dir ckpt/sd15 --H 512 --W 768
+    torchrun --nproc-per-node 2 -m elasticdiffusion_tpu_torch.apps.cli \\
+        --mesh 1x2 --sd_version XL1.0 --H 1024 --W 2048 --tiled_decoder true
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ def build_parser(controlnet: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--tokenizer_dir", type=str, default=None, nargs="*",
                    help="dir(s) with vocab.json+merges.txt")
     p.add_argument("--mesh", type=str, default=None,
-                   help="only 1x1: multi-GPU is not ported")
+                   help="DxV: a (data, views) mesh of D*V processes "
+                        "(torchrun --nproc-per-node D*V)")
     p.add_argument("--fp32", type=str2bool, default=False)
     if controlnet:
         p.add_argument("--controlnet_conditioning_scale", type=float, default=0.2)
@@ -79,22 +83,30 @@ def build_parser(controlnet: bool = False) -> argparse.ArgumentParser:
 
 def runtime_config(opt):
     """The RuntimeConfig of a parsed command line: bf16 weights and compute,
-    fp32 with --fp32; the view batch is the pipe's ``view_batch_size``."""
+    fp32 with --fp32; the view batch is the pipe's ``view_batch_size``; the
+    mesh shape from --mesh DxV."""
     import torch
     from ..configs import RuntimeConfig
     dtype = torch.float32 if opt.fp32 else torch.bfloat16
+    mesh_shape = (1, 1)
+    if opt.mesh:
+        d, v = opt.mesh.lower().split("x")
+        mesh_shape = (int(d), int(v))
     return RuntimeConfig(param_dtype=dtype, compute_dtype=dtype,
-                         view_batch_size=0)
+                         view_batch_size=0, mesh_shape=mesh_shape)
 
 
 def make_pipe(opt, controlnet_model=None, device="cuda", bundle_config=None):
     """The pipe of a parsed command line, on `device`. `bundle_config`
-    replaces the config of ``--sd_version`` (toy models in tests)."""
-    from ..core.pipeline import ElasticDiffusion, _later
+    replaces the config of ``--sd_version`` (toy models in tests). The mesh
+    comes first, so that the bundle loads on the rank's GPU."""
+    import torch
+    from ..core.pipeline import ElasticDiffusion
     from ..models.registry import load_bundle
-    if opt.mesh and opt.mesh.lower() != "1x1":
-        raise _later("a device mesh", "multi-GPU")
+    from ..parallel.sharding import make_mesh
     runtime = runtime_config(opt)
+    mesh = make_mesh(runtime.mesh_shape, runtime.mesh_axis_names,
+                     device_type=torch.device(device).type)
     tok = tuple(opt.tokenizer_dir) if opt.tokenizer_dir else None
     bundle = load_bundle(opt.sd_version, runtime=runtime,
                          checkpoint_dir=opt.checkpoint_dir,
@@ -106,7 +118,7 @@ def make_pipe(opt, controlnet_model=None, device="cuda", bundle_config=None):
                             view_batch_size=opt.view_batch_size,
                             low_vram=opt.low_vram,
                             controlnet_model=controlnet_model,
-                            runtime=runtime, bundle=bundle)
+                            runtime=runtime, bundle=bundle, mesh=mesh)
 
 
 def request_kwargs(opt) -> dict:
@@ -140,7 +152,8 @@ def save_outputs(opt, imgs, image_log):
 
 
 def main(argv=None):
-    """Run one command line; returns the directory the images went to."""
+    """Run one command line; returns the directory the images went to (None
+    on a rank of a mesh other than its first, which writes nothing)."""
     opt = build_parser().parse_args(argv)
     from tqdm import tqdm
     from ..utils.timeit import timelog
@@ -152,6 +165,9 @@ def main(argv=None):
     if opt.verbose:
         timelog.print_results()
     print(f"[metrics] {pipe.last_metrics}")
+    from ..parallel.sharding import is_first_rank
+    if not is_first_rank():
+        return None
     save_dir = save_outputs(opt, imgs, image_log)
     print(f"[INFO] saved to {save_dir}")
     return save_dir

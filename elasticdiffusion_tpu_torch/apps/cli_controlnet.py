@@ -32,7 +32,8 @@ def make_condition(opt, pipe, depth_fn=None):
 
 
 def main(argv=None):
-    """Run one command line; returns the directory the images went to."""
+    """Run one command line; returns the directory the images went to (None
+    on a rank of a ``--mesh`` other than its first, which writes nothing)."""
     opt = build_parser(controlnet=True).parse_args(argv)
     from tqdm import tqdm
     from ..utils.timeit import timelog
@@ -46,6 +47,9 @@ def main(argv=None):
         **request_kwargs(opt))
     if opt.verbose:
         timelog.print_results()
+    from ..parallel.sharding import is_first_rank
+    if not is_first_rank():
+        return None
     save_dir = save_outputs(opt, imgs, image_log)
     print(f"[INFO] saved to {save_dir}")
     return save_dir

@@ -268,7 +268,11 @@ class RuntimeConfig:
 
     conv_impl: 'cudnn' leaves the UNet's stride-1 3x3 convolutions to
     ``nn.Conv2d``; 'kernel' sends those inside the kernel's gate to the
-    hand-written conv3x3 kernel (the VAE stays on cuDNN either way)."""
+    hand-written conv3x3 kernel (the VAE stays on cuDNN either way).
+
+    mesh_shape: (data, views) ranks of the ``parallel/sharding.py`` mesh
+    that ``ElasticDiffusion`` builds when it is given none; (1, 1) is one
+    process and no mesh."""
 
     param_dtype: torch.dtype = torch.bfloat16    # device-resident weights
     compute_dtype: torch.dtype = torch.bfloat16  # matmul/conv dtype
@@ -277,12 +281,23 @@ class RuntimeConfig:
     use_kernels: str = "auto"                    # 'auto' | 'on' | 'off'
     conv_impl: str = "cudnn"                     # 'cudnn' | 'kernel'
     view_batch_size: int = 0                     # 0 = all views in one batch
+    mesh_shape: Tuple[int, ...] = (1, 1)         # (data, views)
+    mesh_axis_names: Tuple[str, ...] = ("data", "views")
 
     def __post_init__(self):
         if self.use_kernels not in USE_KERNELS_MODES:
             raise ValueError(f"use_kernels must be one of {USE_KERNELS_MODES}, "
                              f"got {self.use_kernels!r}")
         check_conv_impl(self.conv_impl)
+        shape = tuple(self.mesh_shape)
+        if len(shape) != 2 or not all(
+                isinstance(n, int) and not isinstance(n, bool) and n > 0
+                for n in shape):
+            raise ValueError(f"mesh_shape must be two positive ints "
+                             f"(data, views), got {self.mesh_shape!r}")
+        if len(self.mesh_axis_names) != 2:
+            raise ValueError(f"mesh_axis_names must name two axes, got "
+                             f"{self.mesh_axis_names!r}")
 
 
 @dataclass(frozen=True)

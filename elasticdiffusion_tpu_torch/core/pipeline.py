@@ -17,8 +17,13 @@ overlap-averaged tiles (``tiled_decode``). ``checkpoint_path`` /
 ``checkpoint_every`` save the latent, the step and the step generator's
 state to an ``.npz`` file, and ``resume_from`` continues from one.
 
-Runs on the GPU unless the caller passes ``device="cpu"``. Arguments that
-belong to a slice not ported yet raise ``NotImplementedError``.
+With a mesh (``mesh=`` or ``RuntimeConfig.mesh_shape``, see
+``parallel/sharding.py``), every rank runs this code: the weights are
+broadcast from the first rank, each estimator's UNet batch is split over
+the 'views' axis, and the halo decode splits its stage b into bands of
+latent rows; every rank ends with the same latent and image.
+
+Runs on the GPU unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ from ..models.registry import ModelBundle, load_bundle, resolve_device
 from ..ops.resample import build_resample_plan, get_downsample_size
 from ..ops.resize import nearest_resize
 from ..ops.views import build_view_plan, get_views_latent
+from ..parallel.sharding import (collective_inventory, is_first_rank,
+                                 make_mesh, put_replicated,
+                                 reset_collective_inventory)
 from ..sched.ddim import DDIMScheduler
 from ..sched.weight_schedulers import (CosineScheduler, make_rrg_scheduler,
                                        rrg_weight_table)
@@ -42,11 +50,6 @@ from ..utils.image import make_grid, to_pil
 from ..utils.timeit import timelog
 from . import background, signals
 from .background import PadSpec
-
-
-def _later(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"Queue 1, {item})")
 
 
 def _fold(seed: int, n: int) -> int:
@@ -118,6 +121,11 @@ class ElasticDiffusion:
     package's ``low_vram`` also rematerialises the UNet for a backward pass,
     which changes nothing in an inference forward: the port has no knob for
     it.
+
+    `mesh`: a ``parallel/sharding.py`` mesh; None builds one from
+    ``runtime.mesh_shape`` (None for one rank), before the bundle is loaded
+    so that it lands on the rank's GPU. Every model of the bundle is then
+    broadcast from the mesh's first rank.
     """
 
     use_halo_decode = True
@@ -131,13 +139,19 @@ class ElasticDiffusion:
                  runtime: Optional[RuntimeConfig] = None,
                  bundle: Optional[ModelBundle] = None,
                  mesh=None):
-        if mesh is not None:
-            raise _later("a device mesh", "multi-GPU")
         self.sd_version = sd_version
         self.low_vram = low_vram
         self.verbose = verbose
         self.log_freq = log_freq
         self.view_batch_size = view_batch_size
+        if mesh is None:
+            rt = runtime or (bundle.runtime if bundle is not None
+                             else RuntimeConfig())
+            dev_type = (bundle.device if bundle is not None
+                        else resolve_device(device)).type
+            mesh = make_mesh(rt.mesh_shape, rt.mesh_axis_names,
+                             device_type=dev_type)
+        self.mesh = mesh
         if bundle is None:
             bundle = load_bundle(sd_version, runtime=runtime or RuntimeConfig(),
                                  checkpoint_dir=checkpoint_dir,
@@ -148,6 +162,10 @@ class ElasticDiffusion:
             raise ValueError(f"bundle lives on {bundle.device}, not on "
                              f"{device!r}")
         self.bundle = bundle
+        for model in {id(m): m for m in (
+                bundle.unet, bundle.controlnet, bundle.vae_fp32, bundle.vae,
+                *bundle.text_models) if m is not None}.values():
+            put_replicated(model, mesh)
         self.controlnet_model = controlnet_model
         self.device = bundle.device
         # a caller-configured bundle keeps its runtime unless one is given
@@ -205,12 +223,14 @@ class ElasticDiffusion:
         return (img.float() / 2 + 0.5).clamp(0.0, 1.0)
 
     def halo_decode(self, latents) -> torch.Tensor:
-        """The exact large-size decode (``parallel/halo_decode.py``):
-        monolithic or streamed stage b by its predictive choice; equal to
+        """The exact large-size decode (``parallel/halo_decode.py``): bands
+        of stage b over the mesh's 'views' axis, else monolithic or
+        streamed stage b by its predictive choice; equal to
         ``decode_latents`` up to the order of sums."""
         from ..parallel.halo_decode import halo_decode
         img = halo_decode(self.bundle, latents.float()
-                          / self.bundle.config.vae.scaling_factor)
+                          / self.bundle.config.vae.scaling_factor,
+                          mesh=self.mesh)
         return (img.float() / 2 + 0.5).clamp(0.0, 1.0)
 
     def tiled_decode(self, latents) -> torch.Tensor:
@@ -287,13 +307,13 @@ class ElasticDiffusion:
             ctx.drop_p, add_text_embeds_cfg=ctx.add_text_cfg,
             add_time_ids=ctx.add_time_ids, scripted_picks=picks,
             controlnet_cond=ctx.controlnet_cond,
-            controlnet_scale=ctx.controlnet_scale)
+            controlnet_scale=ctx.controlnet_scale, mesh=self.mesh)
         local = signals.compute_local_uncond_signal(
             self.bundle, lat, t, ctx.uncond_text, ctx.view_plan, ctx.view_pad,
             bg_view, uncond_pooled=ctx.uncond_pooled,
             add_time_ids=ctx.add_time_ids, view_batch_size=ctx.view_chunk,
             controlnet_cond=ctx.controlnet_cond,
-            controlnet_scale=ctx.controlnet_scale)
+            controlnet_scale=ctx.controlnet_scale, mesh=self.mesh)
         return res, local
 
     def _denoise_step(self, ctx: _StepContext, lat, inp: Dict[str, Any],
@@ -458,13 +478,18 @@ class ElasticDiffusion:
 
         tiled_decoder: decode with ``halo_decode`` (``use_halo_decode``, the
         default) or ``tiled_decode``. checkpoint_path / checkpoint_every:
-        after every `checkpoint_every`-th step, write the latent
-        (``latent``), the step (``step``) and the step generator's state
-        (``generator``) to the ``.npz`` file `checkpoint_path`.
+        after every `checkpoint_every`-th step, the first rank writes the
+        latent (``latent``), the step (``step``) and the step generator's
+        state (``generator``) to the ``.npz`` file `checkpoint_path`.
         resume_from: such a file; the run restores the latent and the
         generator and goes on at the step after the saved one, so that it
-        ends with the uninterrupted run's latent."""
+        ends with the uninterrupted run's latent.
+
+        With a mesh, ``last_metrics["collectives"]`` holds this rank's
+        ``collective_inventory`` of the call."""
         t_fn0 = time.time()
+        if self.mesh is not None:
+            reset_collective_inventory()
         b = self.bundle
         dev = self.device
         on_cuda = dev.type == "cuda"
@@ -536,7 +561,8 @@ class ElasticDiffusion:
                 if sched.rrg_w[i] > 10:
                     inter_rrg_x0.append(aux["rrg_x0"])
             if checkpoint_path and checkpoint_every \
-                    and (i + 1) % checkpoint_every == 0:
+                    and (i + 1) % checkpoint_every == 0 \
+                    and is_first_rank():
                 np.savez(checkpoint_path, latent=lat.cpu().numpy(), step=i,
                          generator=ctx.generator.get_state().numpy())
         if on_cuda:
@@ -565,6 +591,8 @@ class ElasticDiffusion:
         if on_cuda:
             torch.cuda.synchronize(dev)
         self.last_metrics["decode_seconds"] = time.time() - t_dec0
+        if self.mesh is not None:
+            self.last_metrics["collectives"] = collective_inventory()
         if return_arrays:
             return imgs.cpu().numpy(), {"latent": lat.cpu().numpy(), **image_log}
         if grid:

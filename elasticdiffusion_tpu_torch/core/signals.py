@@ -23,6 +23,11 @@ Structure, as in the JAX package:
     zero-padded with the latent's background pads and tiled over the
     resampling substeps for the direction, its first image nearest-upsampled
     to the full latent's pixels and cropped per view for the local signal
+  - with a mesh, each estimator's merged UNet batch (and every batched
+    input of it: contexts, SDXL conditioning, ControlNet conditions) is
+    split over the 'views' axis by ``parallel/sharding.py``'s
+    ``sharded_call``; each view chunk is split on its own. The generators
+    are never split: every rank draws the same numbers
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..ops.resample import (ResamplePlan, apply_resample, fill_in,
                             update_exclude_mask)
 from ..ops.resize import nearest_resize
 from ..ops.views import ViewPlan, gather_views, scatter_first_writer
+from ..parallel.sharding import sharded_call
 from .background import PadSpec, crop_from_padding, pad_with_background
 
 
@@ -71,6 +77,18 @@ def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
         kwargs["mid_block_residual"] = mid
     eps = bundle.apply_unet(x_in, t, context, **kwargs)
     return crop_from_padding(eps, pad_spec)
+
+
+def _unet_rows(bundle, t, pad_spec: PadSpec, step_bgs,
+               controlnet_scale: float):
+    """``unet_step`` as a function of its batched inputs alone (latent,
+    context, SDXL text embeds and time ids, ControlNet condition), for
+    ``sharded_call``."""
+    def run(x, context, add_text_embeds, add_time_ids, controlnet_cond):
+        return unet_step(bundle, x, t, context, pad_spec, step_bgs,
+                         add_text_embeds, add_time_ids, controlnet_cond,
+                         controlnet_scale)
+    return run
 
 
 def obtain_latent_direction(bundle, latent, t, text_embeds_cfg, pad_spec,
@@ -135,7 +153,7 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
                                  step_bgs, resampling_steps: int, drop_p: float,
                                  add_text_embeds_cfg=None, add_time_ids=None,
                                  scripted_picks=None, controlnet_cond=None,
-                                 controlnet_scale: float = 1.0
+                                 controlnet_scale: float = 1.0, mesh=None
                                  ) -> DirectionResult:
     """Global CFG direction with randomized resampling.
 
@@ -179,10 +197,8 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
         l, r, tp, bp = pad_spec.pads
         low = F.pad(controlnet_cond, (l * vsf, r * vsf, tp * vsf, bp * vsf))
         cn = low.repeat(2 * n_sub, 1, 1, 1)
-    eps = unet_step(bundle, x2, t, ctx, pad_spec, step_bgs,
-                    add_text_embeds=ate, add_time_ids=tid,
-                    controlnet_cond=cn, controlnet_scale=controlnet_scale
-                    ).float()
+    run = _unet_rows(bundle, t, pad_spec, step_bgs, controlnet_scale)
+    eps = sharded_call(run, mesh, x2, ctx, ate, tid, cn).float()
     eps_u = eps[:n_sub * B].reshape(n_sub, B, C, dh, dw)
     eps_c = eps[n_sub * B:].reshape(n_sub, B, C, dh, dw)
     directions = eps_c - eps_u                       # (n_sub, B, C, dh, dw)
@@ -231,11 +247,12 @@ def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
                                 uncond_pooled=None, add_time_ids=None,
                                 view_batch_size: int = 0,
                                 controlnet_cond=None,
-                                controlnet_scale: float = 1.0):
+                                controlnet_scale: float = 1.0, mesh=None):
     """Local unconditional score over patch views.
 
     One batched UNet call over all V views, or chunks of view_batch_size
-    views with a ragged last chunk (the same numbers either way).
+    views with a ragged last chunk (the same numbers either way). With a
+    mesh, each call's rows are split over 'views'.
     """
     B = latent.shape[0]
     V = plan.num_views
@@ -248,16 +265,14 @@ def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
     cn = None if controlnet_cond is None else view_conditions(
         controlnet_cond, plan, B, bundle.vae_scale_factor)
 
+    run = _unet_rows(bundle, t, pad_spec, step_bgs, controlnet_scale)
     chunk = view_batch_size * B if 0 < view_batch_size < V else V * B
     preds = []
     for lo in range(0, V * B, chunk):
-        hi = min(lo + chunk, V * B)
-        preds.append(unet_step(
-            bundle, vb[lo:hi], t, ctx[lo:hi], pad_spec, step_bgs,
-            add_text_embeds=None if pooled is None else pooled[lo:hi],
-            add_time_ids=None if tid is None else tid[lo:hi],
-            controlnet_cond=None if cn is None else cn[lo:hi],
-            controlnet_scale=controlnet_scale))
+        rows = slice(lo, min(lo + chunk, V * B))
+        preds.append(sharded_call(
+            run, mesh, vb[rows], ctx[rows],
+            *(None if a is None else a[rows] for a in (pooled, tid, cn))))
     preds = torch.cat(preds) if len(preds) > 1 else preds[0]
     preds = preds.reshape(V, B, *preds.shape[1:]).float()
     return scatter_first_writer(preds, plan)

@@ -1,3 +1,3 @@
-"""Decoding at sizes past one monolithic pass: ``halo_decode``. One GPU; the
-JAX package's multi-chip branch (bands sharded over a mesh) waits for the
-multi-GPU port (ROADMAP.md Queue 1)."""
+"""Several GPUs and large sizes: the ('data', 'views') mesh of processes and
+its collectives (``sharding``), and ``halo_decode``, whose stage b runs in
+bands over the mesh or, on one GPU, monolithic, streamed or in bands."""

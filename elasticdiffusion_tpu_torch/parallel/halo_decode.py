@@ -1,12 +1,27 @@
-"""Large-size VAE decode on one GPU: the decoder split in two stages.
+"""Large-size VAE decode: the decoder split in two stages.
 
 Counterpart of ``elasticdiffusion_tpu/parallel/halo_decode.py``. The
 decoder's one global operation, the mid-block attention, runs in stage a at
 latent resolution (``AutoencoderKL.decode_stage_a``), once on the whole
 latent. Stage b, the 8x upsampling stack, is convolutions and GroupNorms:
 each 3x3 conv sees one row above and below, and GroupNorm needs the moments
-of the whole tensor. ``halo_decode`` runs stage b in one of three ways:
+of the whole tensor. ``halo_decode`` runs stage b in one of four ways:
 
+  mesh        a ``parallel/sharding.py`` mesh whose 'views' axis n > 1
+              divides the latent's rows: rank i runs stage b on latent rows
+              [i H/n, (i+1) H/n) of stage a's output (every rank runs stage
+              a on the whole latent). Before every 3x3 conv each band
+              ``all_gather``s its first and last rows over 'views' and takes
+              its neighbours' (zeros at a true image edge, the conv's own
+              padding), then convolves without H padding. Every GroupNorm
+              takes its band's ``group_norm_sums``, ``all_reduce``s them
+              over 'views' and normalises the band with
+              ``group_norm_apply``: the bands are disjoint, so the moments
+              are the whole tensor's and the result is exact. The x2
+              upsample stays in the band; the bands are ``all_gather``ed
+              into the whole image on every rank. The JAX package's
+              ``shard_map`` branch, with ``all_gather`` in the place of
+              ``ppermute``.
   monolithic  ``decode_stage_b`` on the whole tensor (``num_bands=1``).
   bands       ``num_bands > 1``: bands of latent rows, each widened by
               ``halo`` rows on both sides and decoded by the module on its
@@ -22,7 +37,8 @@ of the whole tensor. ``halo_decode`` runs stage b in one of three ways:
               window; ``group_norm_apply`` normalises each window with them.
               The convs are ``F.conv2d`` with the modules' own weights.
 
-With ``num_bands`` and ``streamed`` both None the choice is predictive:
+Without the mesh branch, and with ``num_bands`` and ``streamed`` both
+None, the choice is predictive:
 monolithic up to ``MAX_PX`` output pixels, streamed above. No branch is
 tried and abandoned on an out-of-memory error.
 
@@ -46,6 +62,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.groupnorm import group_scale_shift, moment_sums, scale_shift
+from .sharding import (all_gather_views, all_reduce_views, views_rank,
+                       views_size)
 
 DEFAULT_HALO = 16  # bands: the receptive field of stage b is ~13 latent rows
 
@@ -192,6 +210,80 @@ def _stage_b_streamed(dec, hidden: torch.Tensor) -> torch.Tensor:
     return out.contiguous()
 
 
+def _norm_band(x: torch.Tensor, gn, mesh) -> torch.Tensor:
+    """GroupNorm `gn` (and its SiLU) of a band with the moments of all
+    bands: the band's sums added over 'views'."""
+    sums = all_reduce_views(moment_sums(_nhwc(x), gn.use_kernels), mesh)
+    scale, shift = _moments(gn, sums, x.shape[2] * views_size(mesh)
+                            * x.shape[3])
+    return scale_shift(_nhwc(x), scale, shift, gn.silu,
+                       gn.use_kernels).permute(0, 3, 1, 2)
+
+
+def _conv_band(x: torch.Tensor, conv, mesh) -> torch.Tensor:
+    """3x3 conv of a band: the row above it and the row below it from the
+    neighbouring bands (zeros at a true image edge), no H padding."""
+    n, r = views_size(mesh), views_rank(mesh)
+    edges = all_gather_views(torch.cat([x[:, :, :1], x[:, :, -1:]], dim=2),
+                             mesh)
+    cl = torch.channels_last
+    zero = torch.zeros_like(x[:, :, :1], memory_format=cl)
+    top = edges[r - 1][:, :, 1:].contiguous(memory_format=cl) if r else zero
+    bottom = edges[r + 1][:, :, :1].contiguous(memory_format=cl) \
+        if r < n - 1 else zero
+    return F.conv2d(torch.cat([top, x, bottom], dim=2), conv.weight,
+                    conv.bias, padding=(0, 1))
+
+
+def _resnet_band(x: torch.Tensor, resnet, mesh) -> torch.Tensor:
+    h = _conv_band(_norm_band(x, resnet.norm1, mesh), resnet.conv1, mesh)
+    h = _conv_band(_norm_band(h, resnet.norm2, mesh), resnet.conv2, mesh)
+    if resnet.conv_shortcut is not None:
+        x = resnet.conv_shortcut(x)
+    return x + h
+
+
+def _stage_b_mesh(dec, hidden: torch.Tensor, mesh) -> torch.Tensor:
+    """The decoder's stage b on this rank's band of latent rows; the bands
+    of the 'views' group joined into the whole image."""
+    hs = hidden.shape[2] // views_size(mesh)
+    r0 = views_rank(mesh) * hs
+    x = hidden[:, :, r0:r0 + hs].contiguous(memory_format=torch.channels_last)
+    for blk in dec.up_blocks:
+        for resnet in blk.resnets:
+            x = _resnet_band(x, resnet, mesh)
+        if hasattr(blk, "upsamplers"):
+            x = _conv_band(F.interpolate(x, scale_factor=2.0, mode="nearest"),
+                           blk.upsamplers[0].conv, mesh)
+    x = _conv_band(_norm_band(x, dec.conv_norm_out, mesh), dec.conv_out, mesh)
+    return torch.cat(all_gather_views(x, mesh), dim=2)
+
+
+def mesh_norm_shapes(vae_config, B: int, h: int, w: int, n: int
+                     ) -> List[Tuple[str, Tuple[int, int, int, int], bool]]:
+    """(half, (B, H, W, C), silu) of every launch of the two GroupNorm
+    halves on one rank in the mesh stage b of a (B, 4, h, w) latent over n
+    bands, in the order ``_stage_b_mesh`` makes them. Mirrors it: change
+    both together."""
+    bo = list(reversed(vae_config.block_out_channels))
+    out = []
+
+    def norm(H, W, C):
+        out.extend([("sums", (B, H, W, C), False),
+                    ("apply", (B, H, W, C), True)])
+
+    H, W, C = h // n, w, bo[0]
+    for i, ch in enumerate(bo):
+        if i > 0:
+            H, W = 2 * H, 2 * W
+        for _ in range(vae_config.layers_per_block + 1):
+            norm(H, W, C)
+            norm(H, W, ch)
+            C = ch
+    norm(H, W, C)
+    return out
+
+
 def streamed_norm_shapes(vae_config, B: int, h: int, w: int
                          ) -> List[Tuple[str, Tuple[int, int, int, int], bool]]:
     """(half, (B, H, W, C), silu) of every launch of the two GroupNorm
@@ -236,28 +328,29 @@ def halo_decode(bundle, latents_nchw: torch.Tensor, mesh=None,
                 halo: int = DEFAULT_HALO, num_bands: Optional[int] = None,
                 streamed: Optional[bool] = None) -> torch.Tensor:
     """(B, 4, H, W) latents (already divided by scaling_factor) -> (B, 3, 8H,
-    8W) image in [-1, 1]. Monolithic or streamed stage b by the predictive
-    choice when `num_bands` and `streamed` are None; ``num_bands=1``
-    monolithic; ``num_bands > 1`` the approximate sequential bands (with
-    `halo` latent rows of context a side); ``streamed=True`` the exact
-    streamed stage b. The decoder runs in fp32 where the bundle's
-    ``fp32_decode`` says so, as ``ModelBundle.vae_decode`` does, with TF32
-    off."""
-    if mesh is not None:
-        raise NotImplementedError("halo_decode over a device mesh is not "
-                                  "ported yet (ROADMAP.md Queue 1, multi-GPU)")
+    8W) image in [-1, 1], on every rank of `mesh`. The exact mesh branch
+    when the mesh's 'views' axis n > 1 divides H; else monolithic or
+    streamed stage b by the predictive choice when `num_bands` and
+    `streamed` are None; ``num_bands=1`` monolithic; ``num_bands > 1`` the
+    approximate sequential bands (with `halo` latent rows of context a
+    side); ``streamed=True`` the exact streamed stage b. The decoder runs in
+    fp32 where the bundle's ``fp32_decode`` says so, as
+    ``ModelBundle.vae_decode`` does, with TF32 off."""
     from ..models.registry import _fp32_convs
     if bundle.fp32_decode:
         with _fp32_convs():
             return _decode(bundle.vae_fp32, latents_nchw.float(),
-                           bundle.vae_scale_factor, halo, num_bands, streamed)
+                           bundle.vae_scale_factor, halo, num_bands, streamed,
+                           mesh)
     return _decode(bundle.vae, latents_nchw, bundle.vae_scale_factor, halo,
-                   num_bands, streamed)
+                   num_bands, streamed, mesh)
 
 
-def _decode(vae, lat, vsf, halo, num_bands, streamed):
+def _decode(vae, lat, vsf, halo, num_bands, streamed, mesh):
     B, _, H, W = lat.shape
     hidden = vae.decode_stage_a(lat)
+    if views_size(mesh) > 1 and H % views_size(mesh) == 0:
+        return _stage_b_mesh(vae.decoder, hidden, mesh)
     if streamed or (streamed is None and num_bands is None and choose_branch(
             vae.dtype, B, H, W, vsf) == "streamed"):
         return _stage_b_streamed(vae.decoder, hidden)

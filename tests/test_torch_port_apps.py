@@ -180,7 +180,8 @@ def toy_checkpoint(root):
 def test_cli_runs_end_to_end_on_the_cpu(monkeypatch, tmp_path, capsys):
     """The CLI at toy size through make_pipe(device='cpu', bundle_config=...)
     from a checkpoint directory: its PNG equals the same request on the
-    same weights, and a mesh other than 1x1 raises."""
+    same weights, and --mesh 1x2 in a job of one process raises, naming
+    both counts (tests/test_torch_port_mesh.py runs it on two)."""
     tb, d = toy_checkpoint(str(tmp_path))
     monkeypatch.setattr(tcli, "make_pipe", functools.partial(
         tcli.make_pipe, device="cpu", bundle_config=TOY_CFG))
@@ -202,7 +203,7 @@ def test_cli_runs_end_to_end_on_the_cpu(monkeypatch, tmp_path, capsys):
     imgs, _ = ref.generate_image(**tcli.request_kwargs(opt))
     np.testing.assert_array_equal(got, np.asarray(imgs[0]))
 
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="needs 2 processes, the world has 1"):
         tcli.make_pipe(tcli.build_parser().parse_args(argv + ["--mesh", "1x2"]),
                        device="cpu", bundle_config=TOY_CFG)
 

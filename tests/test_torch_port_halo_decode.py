@@ -139,9 +139,21 @@ def test_the_default_choice_streams_above_max_px(monkeypatch):
 
 
 def test_a_mesh_raises_naming_multi_gpu():
+    """The mesh branch is ported (tests/test_torch_port_mesh.py runs it on
+    4 processes); a multi-GPU mesh in a job of one process raises, naming
+    both counts, and mesh_norm_shapes lists its halves' launches per rank:
+    a sums and an apply at the band's rows for each GroupNorm."""
+    from elasticdiffusion_tpu_torch.parallel.sharding import make_mesh
     _, tb = toy_bundles()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        thd.halo_decode(tb, torch.zeros(1, 4, 8, 8), mesh=object())
+    with pytest.raises(ValueError, match="needs 2 processes, the world has 1"):
+        thd.halo_decode(tb, torch.zeros(1, 4, 8, 8),
+                        mesh=make_mesh((1, 2), device_type="cpu"))
+    cfg = tb.config.vae
+    shapes = thd.mesh_norm_shapes(cfg, 1, 8, 6, 2)
+    assert shapes[:2] == [("sums", (1, 4, 6, 8), False),
+                          ("apply", (1, 4, 6, 8), True)]
+    assert shapes[-1] == ("apply", (1, 8, 12, 4), True)
+    assert len(shapes) == 2 * (2 * 2 * (cfg.layers_per_block + 1) + 1)
 
 
 @pytest.mark.parametrize("B,H,W,C,silu", [(2, 6, 10, 128, True),

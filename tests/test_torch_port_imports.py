@@ -1,7 +1,9 @@
 """Import hygiene of the port, module by module: importing any module of
-``elasticdiffusion_tpu_torch``, or ``chip_smoke.py``, brings in neither jax,
-flax nor the JAX package, and needs neither nvcc nor triton. One fresh
-interpreter imports them in turn and reports after each."""
+``elasticdiffusion_tpu_torch``, ``chip_smoke.py`` or the mesh tests' rank
+worker (``tests/torch_port_mesh_worker.py``, which spawned ranks import)
+brings in neither jax, flax nor the JAX package, and needs neither nvcc nor
+triton. One fresh interpreter imports them in turn and reports after
+each."""
 
 import json
 import os
@@ -16,10 +18,12 @@ import elasticdiffusion_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     elasticdiffusion_tpu_torch.__path__, "elasticdiffusion_tpu_torch."))
-TARGETS = ["elasticdiffusion_tpu_torch"] + MODULES + ["chip_smoke"]
+TARGETS = (["elasticdiffusion_tpu_torch"] + MODULES + ["chip_smoke"]
+           + ["torch_port_mesh_worker"])
 
 PROBE = """
 import importlib, json, sys
+sys.path.append("tests")
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'elasticdiffusion_tpu', 'triton',
              'gradio', 'sklearn')
 report = {}
@@ -51,9 +55,10 @@ def test_the_walk_finds_the_new_modules():
     for name in ("models.controlnet", "models.dpt", "apps.preprocessors",
                  "parallel.halo_decode", "core.entry", "utils.timeit",
                  "apps.cli", "apps.cli_controlnet", "apps.pca_scores",
-                 "apps.gradio_app", "apps.gradio_img2img", "utils.flops"):
+                 "apps.gradio_app", "apps.gradio_img2img", "utils.flops",
+                 "parallel.sharding"):
         assert f"elasticdiffusion_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 43
+    assert len(MODULES) >= 44
 
 
 @pytest.mark.parametrize("name", TARGETS)

@@ -10,6 +10,7 @@ Bars: per step-end latent MAE < 1e-3 and max < 1e-2, those of
 tests/test_parity.py.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -127,8 +128,9 @@ def test_later_slices_raise_not_implemented(kwargs, tmp_path):
     large sizes and latent checkpoint/resume are ported): a one-step run
     with each gives the plain run's image (the halo decode equals the
     monolithic one within the streamed decode's bar, atol 1e-4 on values in
-    [0, 1]; a checkpoint and a resume from it change nothing); what of them
-    is still to come, a device mesh for the halo decode, raises."""
+    [0, 1]; a checkpoint and a resume from it change nothing). A mesh for
+    the halo decode is ported too (tests/test_torch_port_mesh.py); one that
+    needs more processes than the job has raises, naming both counts."""
     _, tb = toy_bundles()
     tp = TElastic(bundle=tb, device="cpu")
     kw = dict(height=32, width=48, num_inference_steps=1, resampling_steps=0,
@@ -149,20 +151,26 @@ def test_later_slices_raise_not_implemented(kwargs, tmp_path):
         assert set(np.load(kwargs["checkpoint_path"]).files) == {
             "latent", "step", "generator"}
     from elasticdiffusion_tpu_torch.parallel.halo_decode import halo_decode
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        halo_decode(tb, torch.zeros(1, 4, 4, 4), mesh=object())
+    from elasticdiffusion_tpu_torch.parallel.sharding import make_mesh
+    assert tp.mesh is None
+    with pytest.raises(ValueError, match="needs 4 processes, the world has 1"):
+        halo_decode(tb, torch.zeros(1, 4, 4, 4),
+                    mesh=make_mesh((1, 4), device_type="cpu"))
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()),
+@pytest.mark.parametrize("kwargs", [dict(mesh_shape=(1, 2)),
                                     dict(low_vram=True),
                                     dict(bundle=None, sd_version="toy",
                                          checkpoint_dir="toy checkpoint")],
                          ids=["mesh", "low_vram", "checkpoint_dir"])
 def test_later_slices_raise_in_constructor(kwargs, monkeypatch, tmp_path):
-    """A mesh still raises; low_vram (which shapes the tiled decode) is
-    accepted since the decode at large sizes is ported, and checkpoint_dir
-    since loading checkpoints is: the constructor loads a toy checkpoint
-    directory (its bundle config handed to load_bundle here)."""
+    """A runtime mesh_shape is accepted since multi-GPU is ported, and one
+    that needs more processes than the job has raises, naming both counts
+    (tests/test_torch_port_mesh.py runs meshes); low_vram (which shapes the
+    tiled decode) is accepted since the decode at large sizes is ported,
+    and checkpoint_dir since loading checkpoints is: the constructor loads a
+    toy checkpoint directory (its bundle config handed to load_bundle
+    here)."""
     import elasticdiffusion_tpu_torch.core.pipeline as tpipe
     from elasticdiffusion_tpu_torch.models.convert import save_bundle
     from torch_port_common import TORCH_TOY_RUNTIME
@@ -179,8 +187,10 @@ def test_later_slices_raise_in_constructor(kwargs, monkeypatch, tmp_path):
         for a, b in zip(pipe.bundle.unet.parameters(), tb.unet.parameters()):
             assert torch.equal(a, b)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TElastic(**{"bundle": tb, "device": "cpu", **kwargs})
+        runtime = dataclasses.replace(tb.runtime, **kwargs)
+        with pytest.raises(ValueError, match="needs 2 processes, the world "
+                                             "has 1"):
+            TElastic(bundle=tb, device="cpu", runtime=runtime)
     with pytest.raises(ValueError, match="divisible"):
         TElastic(bundle=tb, device="cpu").generate_image("x", height=33, width=48)
 

@@ -57,12 +57,18 @@ def test_small_configs_equal_and_runtime_is_cut():
     names = {f.name for f in dataclasses.fields(tcfg.RuntimeConfig)}
     assert names == {"param_dtype", "compute_dtype", "accum_dtype",
                      "vae_decode_fp32", "use_kernels", "conv_impl",
-                     "view_batch_size"}
+                     "view_batch_size", "mesh_shape", "mesh_axis_names"}
     assert tcfg.RuntimeConfig().compute_dtype == torch.bfloat16
+    for name in ("mesh_shape", "mesh_axis_names"):
+        assert getattr(tcfg.RuntimeConfig(), name) == \
+            getattr(jcfg.RuntimeConfig(), name)
     with pytest.raises(ValueError):
         tcfg.RuntimeConfig(use_kernels="maybe")
     with pytest.raises(ValueError):
         tcfg.RuntimeConfig(conv_impl="maybe")
+    for shape in ((2,), (1, 2, 2), (0, 2), (1, -2), (1, 2.0), (True, 2)):
+        with pytest.raises(ValueError, match="mesh_shape"):
+            tcfg.RuntimeConfig(mesh_shape=shape)
 
 
 @pytest.mark.parametrize("steps", [1, 2, 4, 50])
