@@ -71,11 +71,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
             a path
   decode    on the SDXL bundle one latent at 256x256 (2048x2048 px, fp32)
             and on the SD 2.1 bundle one at 96x96 (bf16), each through
-            decode_latents, halo_decode(streamed=False) and
-            halo_decode(streamed=True): seconds, CUDA-event ms, peak bytes,
+            decode_latents, halo_decode(streamed=False),
+            halo_decode(streamed=True) and the approximate bands
+            halo_decode(num_bands=4): seconds, CUDA-event ms, peak bytes,
             the branch halo_decode's default choice takes there, launches
-            checked as for a path; fails when a halo route is further than
-            DECODE_TOL_REL_L2 from decode_latents
+            checked as for a path; fails when the monolithic or streamed
+            halo route is further than DECODE_TOL_REL_L2 from
+            decode_latents, or the band route further than that from the
+            same route on the plain versions (its distance from
+            decode_latents is printed)
   mesh      SDXL 1.0 (the sdxl path's bundle and perturbation) on a (1, 2)
             mesh of two spawned ranks (both on cuda:0 under gloo on one
             GPU, one GPU a rank under NCCL on two), one request at
@@ -523,6 +527,17 @@ def groupnorm_cases():
                                (4, 512, T), (4, 256, T), (8, 256, T),
                                (8, 128, T)):
                 add("vae_decode", dtype, f32, 1e-6, 1, k * h, k * w, C, silu)
+    # the band route of the decode phase (halo_decode(num_bands=
+    # DECODE_BANDS) at DEFAULT_HALO): stage b on every band's window of rows
+    from elasticdiffusion_tpu_torch.configs import get_bundle_config
+    from elasticdiffusion_tpu_torch.parallel.halo_decode import band_norm_shapes
+    for p in PATHS:
+        if "decode" in p:
+            cfg = get_bundle_config(p["sd_version"]).vae
+            dtype = f32 if cfg.force_upcast else bf
+            for (B, H, W, C), silu in band_norm_shapes(cfg, 1, *p["decode"],
+                                                       DECODE_BANDS):
+                add("vae_bands", dtype, f32, 1e-6, B, H, W, C, silu)
     # fp32 encoders of the background strips (image rows x width): SD 1.x /
     # 2.x 88x512, SDXL 168x1024, 176x1024 and 256x1024 (the mesh phase's
     # 1024x2048 px request, on every rank)
@@ -1385,6 +1400,12 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
 # rounds the windows' normalised activations and conv outputs to bf16 at
 # other places than the monolithic modules do
 DECODE_TOL_REL_L2 = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The band route of the decode phase: halo_decode(num_bands=DECODE_BANDS) at
+# the module's DEFAULT_HALO. It is approximate by design (each band takes
+# its own GroupNorm moments), so it is held to the same route on the plain
+# versions within DECODE_TOL_REL_L2, and its distance from decode_latents is
+# recorded, not bounded
+DECODE_BANDS = 4
 
 
 def event_ms(fn):
@@ -1402,14 +1423,16 @@ def event_ms(fn):
 
 
 def phase_decode(bundle, path, checked=None, chunk_budgets=()):
-    """One latent of the path's "decode" size through three routes:
-    decode_latents (the modules), halo_decode(streamed=False) and
-    halo_decode(streamed=True); per route seconds, CUDA-event ms and peak
-    bytes (each route runs once before it is measured), its rel L2 against
-    decode_latents, and the branch halo_decode's default choice takes at
-    that size. Launch counts are set to 0 just before and read just after,
-    as for a path of the requests phase. `chunk_budgets`: the streamed
-    route again at each slab budget (bytes), after the counts are read."""
+    """One latent of the path's "decode" size through four routes:
+    decode_latents (the modules), halo_decode(streamed=False),
+    halo_decode(streamed=True) and halo_decode(num_bands=DECODE_BANDS); per
+    route seconds, CUDA-event ms and peak bytes (each route runs once before
+    it is measured), its rel L2 against decode_latents, and the branch
+    halo_decode's default choice takes at that size. Launch counts are set
+    to 0 just before and read just after, as for a path of the requests
+    phase. After the counts are read, the band route runs again on the
+    plain versions (`rel_l2_plain`), and `chunk_budgets`: the streamed
+    route again at each slab budget (bytes)."""
     import elasticdiffusion_tpu_torch.kernels as kernels
     from elasticdiffusion_tpu_torch.parallel import halo_decode as hd
     h, w = path["decode"]
@@ -1422,7 +1445,9 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
               "halo_monolithic": lambda: hd.halo_decode(bundle, z,
                                                         streamed=False),
               "halo_streamed": lambda: hd.halo_decode(bundle, z,
-                                                      streamed=True)}
+                                                      streamed=True),
+              "halo_bands": lambda: hd.halo_decode(bundle, z,
+                                                   num_bands=DECODE_BANDS)}
     wrappers, plain = kernel_counts(), plain_cuda_counts()
     for wr in wrappers.values():
         wr.launches = 0
@@ -1450,11 +1475,22 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
                      "rel_l2": rel_l2(img, ref),
                      "max_abs": (img.float() - ref.float()).abs().max().item(),
                      "shape": list(img.shape)}
+        if name == "halo_bands":
+            bands = img
         del img
     log = kernels.launch_log
     kernels.launch_log = None
     totals = {n: wr.launches for n, wr in wrappers.items()}
     plain_calls = {n: d.plain_cuda_calls for n, d in plain.items()}
+    bundle.set_use_kernels("off")
+    try:
+        plain_bands = routes["halo_bands"]()
+    finally:
+        bundle.set_use_kernels("auto")
+    out["halo_bands"]["rel_l2_plain"] = rel_l2(bands, plain_bands)
+    out["halo_bands"]["max_abs_plain"] = (
+        bands.float() - plain_bands.float()).abs().max().item()
+    del bands, plain_bands
     sweep, default_chunk = {}, hd.CHUNK_BYTES
     for budget in chunk_budgets:
         hd.CHUNK_BYTES = budget
@@ -1481,6 +1517,7 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
           "sd_version": path["sd_version"], "latent": [h, w],
           "pixels": h * vsf * w * vsf, "dtype": str(dtype), "routes": out,
           "default_branch": hd.choose_branch(dtype, 1, h, w, vsf),
+          "bands": DECODE_BANDS, "halo": hd.DEFAULT_HALO,
           "max_px": hd.MAX_PX[dtype], "chunk_bytes": hd.CHUNK_BYTES,
           "chunk_sweep": sweep, "tolerance_rel_l2": tol, "launches": totals,
           "plain_versions_on_cuda": plain_calls,
@@ -1502,6 +1539,10 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
         if not out[name]["rel_l2"] <= tol:
             fail(f"{path['name']} decode {name}: rel L2 {out[name]['rel_l2']} "
                  f"against decode_latents, over {tol}")
+    if not out["halo_bands"]["rel_l2_plain"] <= tol:
+        fail(f"{path['name']} decode halo_bands: rel L2 "
+             f"{out['halo_bands']['rel_l2_plain']} against the same route on "
+             f"the plain versions, over {tol}")
     return log, totals
 
 

@@ -71,6 +71,7 @@ SMS = 132                  # SMs of the H100: blocks the grid body may hold
 STATS_BLOCKS = 264         # two-pass statistics blocks to aim for: 2 an SM
 UNROLL = 8                 # rows a thread has in flight in the two-pass body
 APPLY_BYTES = 32 * 1024    # bytes a two-pass apply block moves
+SUM_BLOCK = 1 << 14        # elements of a group the plain version sums at once
 
 
 class GroupNormPlan(NamedTuple):
@@ -237,12 +238,25 @@ def _two_pass_plan(elt: int, B: int, S: int, C: int, G: int,
 def reference_group_norm(x: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor, groups: int, eps: float = 1e-5,
                          silu: bool = False) -> torch.Tensor:
-    """Plain NHWC GroupNorm, on the JAX package's formula."""
+    """Plain NHWC GroupNorm, on the JAX package's formula. The moments are
+    summed over blocks of rows of at most ``SUM_BLOCK`` elements of a group,
+    then over the blocks, as the kernel sums its blocks' partials: torch's
+    CPU sum of a whole group of the SD VAE's 1x256x512x128 at once is about
+    twenty times less exact than XLA's (tests/test_torch_port_full_width.py
+    holds this version to a float64 GroupNorm)."""
     shape = x.shape
     B, C = shape[0], shape[-1]
-    xg = x.float().reshape(B, -1, groups, C // groups)
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = (xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean
+    gs = C // groups
+    xg = x.float().reshape(B, -1, groups, gs)
+    rows = max(1, SUM_BLOCK // gs)
+    s = q = 0
+    for r0 in range(0, xg.shape[1], rows):
+        part = xg[:, r0:r0 + rows]
+        s = s + part.sum(dim=(1, 3), keepdim=True)
+        q = q + (part * part).sum(dim=(1, 3), keepdim=True)
+    n = xg.shape[1] * gs
+    mean = s / n
+    var = q / n - mean * mean
     out = (xg - mean) * torch.rsqrt(var + eps)
     out = out.reshape(shape) * weight.float() + bias.float()
     if silu:

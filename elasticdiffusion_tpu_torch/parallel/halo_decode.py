@@ -316,6 +316,41 @@ def streamed_norm_shapes(vae_config, B: int, h: int, w: int
     return out
 
 
+def _bands(H: int, num_bands: int, halo: int) -> Tuple[int, int]:
+    """(bands, rows a band decodes) of the band branch on H latent rows: the
+    largest count up to `num_bands` that divides H, each band widened by
+    `halo` rows a side within the latent."""
+    n = max(1, min(num_bands, H))
+    while H % n:
+        n -= 1
+    return n, min(H, H // n + 2 * halo)
+
+
+def band_norm_shapes(vae_config, B: int, h: int, w: int, num_bands: int,
+                     halo: int = DEFAULT_HALO
+                     ) -> List[Tuple[Tuple[int, int, int, int], bool]]:
+    """((B, H, W, C), silu) of every GroupNorm of the band branch of a
+    (B, 4, h, w) latent, in the order ``_decode`` runs them: stage a's on
+    the whole latent (the mid block's two resnets around its attention's
+    norm), then stage b's for every band. Mirrors ``_decode`` and the
+    decoder's modules: change them together."""
+    bo = list(reversed(vae_config.block_out_channels))
+    top = bo[0]
+    out = [((B, h, w, top), True)] * 2 + [((B, h, w, top), False)] \
+        + [((B, h, w, top), True)] * 2
+    n, win = _bands(h, num_bands, halo)
+    band = []
+    H, W, C = win, w, top
+    for i, ch in enumerate(bo):
+        if i > 0:
+            H, W = 2 * H, 2 * W
+        for _ in range(vae_config.layers_per_block + 1):
+            band += [((B, H, W, C), True), ((B, H, W, ch), True)]
+            C = ch
+    band.append(((B, H, W, C), True))
+    return out + band * n
+
+
 def choose_branch(dtype: torch.dtype, B: int, H: int, W: int, vsf: int) -> str:
     """'monolithic' or 'streamed': the default choice for a (B, 4, H, W)
     latent decoded in `dtype`."""
@@ -354,13 +389,10 @@ def _decode(vae, lat, vsf, halo, num_bands, streamed, mesh):
     if streamed or (streamed is None and num_bands is None and choose_branch(
             vae.dtype, B, H, W, vsf) == "streamed"):
         return _stage_b_streamed(vae.decoder, hidden)
-    n = max(1, min(num_bands or 1, H))
-    while H % n:
-        n -= 1
+    n, win = _bands(H, num_bands or 1, halo)
     if n == 1:
         return vae.decode_stage_b(hidden)
     hs = H // n
-    win = min(H, hs + 2 * halo)
     bands = []
     for i in range(n):
         start = min(max(i * hs - halo, 0), H - win)

@@ -85,6 +85,12 @@ def max_abs(a, b) -> float:
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
 
 
+def report(name: str, err: float, bar: str) -> None:
+    """One result of the full-width tier (tests/test_torch_port_full_*.py),
+    shown by ``pytest -s``."""
+    print(f"FULL_WIDTH {name} max_abs={err!r} bar={bar}")
+
+
 def _scripted(rng, steps, rs, N, shape, repaint):
     picks_main, picks_repaint, noise = [], [], []
     for _ in range(steps):
