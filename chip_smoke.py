@@ -31,6 +31,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
             host that launches it), with the plan each shape ran (body, tile,
             splits; for GroupNorm the clusters the card holds), and the
             GroupNorm bodies and chunk widths no path reaches (`edge`)
+  api       the scheduler and geometry API around the pipeline at SDXL's
+            2048x2048 px geometry: get_views, compute_downsampling_size,
+            nearest_pick_indices, then on (1, 4, 256, 256) latents in fp32
+            and bf16 DDIMScheduler's add_noise, 50 steps of
+            scale_model_input and step, and undo_step_from_coeffs, on the
+            card and on the CPU from the same draws; fails unless the card's
+            results keep their device and dtype and agree with the CPU's
+            within API_TOL_REL
   model     per bundle, one full-width batch-8 UNet forward and one VAE
             decode with the kernels against the same modules with the plain
             versions; for the bundles that run the conv kernel, the forward
@@ -94,6 +102,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
             bytes, routes), peak bytes, denoise and decode seconds: with two
             ranks on one card these are not a speed
 
+Every path of the requests phase, each decode phase, the apps phase and
+each mesh rank also prints `cpu_conv_calls`, the convolutions that ran
+under the port's CPU convolution rule (models/layers.py `conv2d`:
+contiguous operands on a CPU tensor), and fails unless it is 0: a card path
+runs no convolution on the CPU.
+
 Every bundle's biases and norm weights (the ControlNet's and the DPT's
 too) are moved off their seeded init (`perturb_bundle`) as soon as it
 loads, so that a bias or norm parameter wired to the wrong place shows in
@@ -120,6 +134,7 @@ import time
 
 import torch
 
+from elasticdiffusion_tpu_torch.models.layers import conv2d
 from elasticdiffusion_tpu_torch.utils.flops import (H100_BF16_TFLOPS,
                                                     H100_FP32_TFLOPS,
                                                     H100_HBM_GBPS)
@@ -129,8 +144,8 @@ PEAK_BYTES_PER_S = H100_HBM_GBPS * 1e9
 PEAK_OPS_PER_S = {torch.bfloat16: H100_BF16_TFLOPS * 1e12,
                   torch.float32: H100_FP32_TFLOPS * 1e12}
 
-ALL_PHASES = ("device", "build", "kernels", "model", "requests", "decode",
-              "apps", "mesh")
+ALL_PHASES = ("device", "build", "kernels", "api", "model", "requests",
+              "decode", "apps", "mesh")
 
 # The mesh phase: SDXL 1.0 at 1024x2048 px on a (1, MESH_WORLD) mesh. Its
 # UNet batches (direction 8 rows, repaint direction 2, 4 views) split into
@@ -833,6 +848,118 @@ def phase_kernels():
     return results
 
 
+# The api phase: the scheduler and geometry functions a library user calls
+# around the pipeline, at SDXL's 2048x2048 px latent through a 50-step
+# schedule on the card, each call held to the same call on the CPU on the
+# same inputs. The repaint re-noise runs at step API_UNDO_STEP's timestep
+API_PIXELS = 2048
+API_NATIVE = 1024
+API_STEPS = 50
+API_UNDO_STEP = 25
+# largest difference allowed, over the CPU result's largest magnitude. A
+# call's ops are the same on both devices, but CUDA divides by a scalar as a
+# product with its reciprocal: fp32 results differ in their last bits, and
+# bf16 results (computed in fp32) by one rounding step
+API_TOL_REL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+
+
+def phase_api(device="cuda") -> dict:
+    """get_views, compute_downsampling_size and nearest_pick_indices at the
+    SDXL 2048x2048 px geometry; DDIMScheduler's set_timesteps, add_noise,
+    then API_STEPS of scale_model_input and step, then
+    undo_step_from_coeffs, on (1, 4, 256, 256) latents in fp32 and bf16 on
+    `device` from seeded draws, each call run again on the CPU on the same
+    inputs. Fails unless every result keeps its device and dtype and lies
+    within API_TOL_REL of the CPU's. Also prints how far the card's 50-step
+    chain ends from the same chain run wholly on the CPU."""
+    from elasticdiffusion_tpu_torch.ops.resample import (
+        build_resample_plan, compute_downsampling_size, get_downsample_size,
+        nearest_pick_indices)
+    from elasticdiffusion_tpu_torch.ops.views import get_views, get_views_latent
+    from elasticdiffusion_tpu_torch.sched.ddim import DDIMScheduler
+    t_start = time.time()
+    dev_type = torch.device(device).type
+    lh = lw = API_PIXELS // 8
+    views = get_views(API_PIXELS, API_PIXELS)
+    down = get_downsample_size(API_PIXELS, API_PIXELS, API_NATIVE)
+    size = compute_downsampling_size(lh, lw, API_NATIVE / API_PIXELS)
+    blocks = build_resample_plan(lh, lw, *down).num_blocks
+    pick = nearest_pick_indices(blocks, device=device)
+    out = {"phase": "api", "device": str(pick.device), "latent": [1, 4, lh, lw],
+           "steps": API_STEPS, "views": len(views),
+           "downsampling_size": list(size), "pick_blocks": blocks,
+           "tolerance_rel": {str(k): v for k, v in API_TOL_REL.items()}}
+    if views != get_views_latent(lh, lw, 64, 64, 32) or size != down:
+        fail(f"api: get_views or compute_downsampling_size off the latent "
+             f"geometry: {len(views)} views, {size} against {down}")
+    if not (pick.dtype == torch.int32 and pick.device.type == dev_type
+            and pick.shape == (blocks,) and not pick.any()):
+        fail(f"api: nearest_pick_indices gave {pick.dtype} {pick.device} "
+             f"{tuple(pick.shape)}")
+    sched = DDIMScheduler()
+    state = sched.set_timesteps(API_STEPS)
+    ts = [int(t) for t in state.timesteps]
+    gen = torch.Generator().manual_seed(11)
+    shape = (1, 4, lh, lw)
+    x0 = torch.randn(shape, generator=gen)
+    eps = torch.randn((API_STEPS + 1,) + shape, generator=gen)
+    s1mb, sb = sched.undo_step_coeffs(state, ts[API_UNDO_STEP])
+    noises = torch.randn((len(s1mb),) + shape, generator=gen)
+
+    def chain(dev, dtype, held=None):
+        """The calls in turn on `dev`; held(name, result, call) runs the
+        call again on the CPU's copies of its inputs."""
+        held = held or (lambda name, r, call: None)
+
+        def cast(t):
+            return t.to(device=dev, dtype=dtype)
+        e0, clean = cast(eps[0]), cast(x0)
+        x = sched.add_noise(clean, e0, ts[0])
+        held("add_noise", x, lambda c: sched.add_noise(c(clean), c(e0), ts[0]))
+        for i in range(API_STEPS):
+            if sched.scale_model_input(x, ts[i]) is not x:
+                fail("api: scale_model_input is not the identity")
+            e = cast(eps[i + 1])
+            res = sched.step(state, e, i, x)
+            held("step", res, lambda c: sched.step(state, c(e), i, c(x)))
+            x = res[0]
+        n = cast(noises)
+        res = sched.undo_step_from_coeffs(x, n, s1mb, sb)
+        held("undo_step_from_coeffs", res,
+             lambda c: sched.undo_step_from_coeffs(c(x), c(n), s1mb, sb))
+        return res
+
+    bad = []
+    for dtype, tol in API_TOL_REL.items():
+        worst = {}
+
+        def held(name, got, call):
+            gots = got if isinstance(got, tuple) else (got,)
+            wants = call(lambda t: t.cpu())
+            wants = wants if isinstance(wants, tuple) else (wants,)
+            for g, w in zip(gots, wants):
+                rel = ((g.cpu().float() - w.float()).abs().max()
+                       / w.float().abs().max()).item()
+                worst[name] = max(worst.get(name, 0.0), rel)
+                if not (g.dtype == dtype and g.device.type == dev_type
+                        and bool(torch.isfinite(g).all())):
+                    bad.append(f"{dtype} {name}: {g.dtype} {g.device}")
+
+        end = chain(device, dtype, held)
+        cpu_end = chain("cpu", dtype)
+        bad += [f"{dtype} {n}: {r}" for n, r in worst.items() if not r <= tol]
+        out[str(dtype)] = {
+            "max_rel_diff_per_call": worst,
+            "chain_end_max_abs_diff": (end.cpu().float()
+                                       - cpu_end.float()).abs().max().item(),
+            "chain_end_max_abs": cpu_end.float().abs().max().item()}
+    out["seconds"] = time.time() - t_start
+    emit(out)
+    if bad:
+        fail(f"api: off the CPU's results, device or dtype: {bad}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # model and requests
 # ---------------------------------------------------------------------------
@@ -1006,6 +1133,13 @@ def plain_cuda_counts():
     from elasticdiffusion_tpu_torch.kernels.layernorm import layer_norm
     return {"attention": dot_product_attention, "layer_norm": layer_norm,
             "group_norm": group_norm}
+
+
+def check_cpu_rule(where: str, n: int) -> None:
+    """``conv2d.cpu_calls`` counts the convolutions the port's CPU rule ran;
+    a card path runs none."""
+    if n:
+        fail(f"{where}: {n} convolutions ran on the CPU on a card path")
 
 
 def gate_convs(model):
@@ -1269,6 +1403,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         d.plain_cuda_calls = 0
     for m in convs:
         m.library_cuda_calls = 0
+    conv2d.cpu_calls = 0
     calls = collections.Counter()
     residual_rms = {}
 
@@ -1339,6 +1474,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     cudnn_in_gate = sum(m.library_cuda_calls for m in convs)
     gn_copies = wrappers["fused_group_norm"].copies
     e2e = end_to_end(pipe, path, steps, resampling, first, conditions[0])
+    cpu_calls = conv2d.cpu_calls  # the end-to-end rerun too
     expected_conv = (len(unet_convs) * calls["unet"]
                      + len(cn_convs) * calls["controlnet"]) if conv_on else 0
     unchecked = {} if checked is None else {
@@ -1361,6 +1497,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "conv3x3_operand_copies": wrappers["conv3x3"].copies,
           "cudnn_calls_in_gate": cudnn_in_gate,
           "group_norm_operand_copies": gn_copies,
+          "cpu_conv_calls": cpu_calls,
           "unchecked_launches": unchecked, "end_to_end": e2e,
           "resume": resume})
     if unchecked:
@@ -1368,6 +1505,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
              f"checks: {sorted(unchecked)}")
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
+    check_cpu_rule(path["name"], cpu_calls)
     if resume is not None and not resume["rel_l2"] <= RESUME_TOL_REL_L2:
         fail(f"{path['name']}: the resumed run's final latent differs from "
              f"the uninterrupted run's: {resume}")
@@ -1376,7 +1514,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         fail(f"{path['name']}: kernels against plain versions end to end: "
              f"{e2e}")
     if conv_on and cudnn_in_gate:
-        fail(f"{path['name']}: nn.Conv2d.forward ran {cudnn_in_gate} times "
+        fail(f"{path['name']}: the library conv ran {cudnn_in_gate} times "
              f"inside the conv kernel's gate under conv_impl='kernel'")
     if totals["conv3x3"] != expected_conv:
         fail(f"{path['name']}: conv3x3 launched {totals['conv3x3']} times, the "
@@ -1454,6 +1592,7 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
     wrappers["fused_group_norm"].copies = 0
     for d in plain.values():
         d.plain_cuda_calls = 0
+    conv2d.cpu_calls = 0
     kernels.launch_log = collections.Counter()
     out, ref = {}, None
     for name, fn in routes.items():
@@ -1512,6 +1651,7 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
     unchecked = {} if checked is None else {
         "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
         if key not in checked}
+    cpu_calls = conv2d.cpu_calls  # the plain and sweep runs too
     tol = DECODE_TOL_REL_L2[dtype]
     emit({"phase": "decode", "path": path["name"],
           "sd_version": path["sd_version"], "latent": [h, w],
@@ -1522,6 +1662,7 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
           "chunk_sweep": sweep, "tolerance_rel_l2": tol, "launches": totals,
           "plain_versions_on_cuda": plain_calls,
           "group_norm_operand_copies": wrappers["fused_group_norm"].copies,
+          "cpu_conv_calls": cpu_calls,
           "unchecked_launches": unchecked})
     del ref, z
     torch.cuda.empty_cache()
@@ -1530,6 +1671,7 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
              f"kernel case checks: {sorted(unchecked)}")
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
+    check_cpu_rule(f"{path['name']} decode", cpu_calls)
     never = [n for n in ("flash_attention", "fused_group_norm",
                          "group_norm_sums", "group_norm_apply")
              if totals[n] == 0]
@@ -1714,6 +1856,7 @@ def phase_apps(bundle, path, checked=None, steps: int = 4,
             w.launches = 0
         for d in plain.values():
             d.plain_cuda_calls = 0
+        conv2d.cpu_calls = 0
         kernels.launch_log = collections.Counter()
         runs = {}
         dpt_env = os.environ.get("ED_DPT_DIR")
@@ -1829,7 +1972,9 @@ def phase_apps(bundle, path, checked=None, steps: int = 4,
     unchecked = {} if checked is None else {
         "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
         if key not in checked}
+    cpu_calls = conv2d.cpu_calls  # the source-bundle runs too
     out.update(runs=runs, launches=totals, plain_versions_on_cuda=plain_calls,
+               cpu_conv_calls=cpu_calls,
                unchecked_launches=unchecked)
     emit(out)
     if unchecked:
@@ -1837,6 +1982,7 @@ def phase_apps(bundle, path, checked=None, steps: int = 4,
              f"{sorted(unchecked)}")
     if any(plain_calls.values()):
         fail(f"a plain version stood in for a kernel on the GPU: {plain_calls}")
+    check_cpu_rule("apps", cpu_calls)
     for name, r in runs.items():
         never = [k for k in ("flash_attention", "fused_layer_norm",
                              "fused_group_norm") if r["launches"][k] == 0]
@@ -1938,6 +2084,7 @@ def mesh_rank(rank: int, world: int, backend: str, tmp: str, seed: int,
             d.plain_cuda_calls = 0
         for m in convs:
             m.library_cuda_calls = 0
+        conv2d.cpu_calls = 0
         kernels.launch_log = collections.Counter()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -1983,6 +2130,7 @@ def mesh_rank(rank: int, world: int, backend: str, tmp: str, seed: int,
             out["rel_l2_to_one_gpu"] = rel_l2(
                 torch.as_tensor(info["latent"]),
                 torch.as_tensor(one_info["latent"]))
+        out["cpu_conv_calls"] = conv2d.cpu_calls
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -2052,7 +2200,8 @@ def phase_mesh(seed: int, steps: int, resampling: int, smi: str,
     per_rank = [{k: r[k] for k in (
         "rank", "device", "load_seconds", "wall_seconds", "peak_bytes",
         "launches", "plain_versions_on_cuda", "conv3x3_expected_launches",
-        "cudnn_calls_in_gate", "unet_rows", "image_shape", "digests")}
+        "cudnn_calls_in_gate", "cpu_conv_calls", "unet_rows",
+        "image_shape", "digests")}
         | {"denoise_seconds": r["last_metrics"]["denoise_seconds"],
            "decode_seconds": r["last_metrics"]["decode_seconds"],
            "collectives": r["last_metrics"]["collectives"]}
@@ -2081,13 +2230,14 @@ def phase_mesh(seed: int, steps: int, resampling: int, smi: str,
         if any(r["plain_versions_on_cuda"].values()):
             fail(f"{name}: a plain version stood in for a kernel on the GPU: "
                  f"{r['plain_versions_on_cuda']}")
+        check_cpu_rule(name, r["cpu_conv_calls"])
         never = [n for n, c in r["launches"].items() if c == 0]
         if never:
             fail(f"{name}: never launched: {never}")
         if r["launches"]["conv3x3"] != r["conv3x3_expected_launches"] \
                 or r["cudnn_calls_in_gate"]:
             fail(f"{name}: conv3x3 launched {r['launches']['conv3x3']} times "
-                 f"for {r['conv3x3_expected_launches']}, nn.Conv2d.forward "
+                 f"for {r['conv3x3_expected_launches']}, the library conv "
                  f"{r['cudnn_calls_in_gate']} times in the gate")
         if r["unet_rows"] != [n // world for n in padded]:
             fail(f"{name}: UNet rows {r['unet_rows']}, not the padded rows "
@@ -2171,6 +2321,8 @@ def main(argv=None) -> int:
 
     cases = phase_kernels() if "kernels" in phases else []
     checked = {r["log_key"] for r in cases} if "kernels" in phases else None
+    if "api" in phases:
+        phase_api()
 
     logs, totals = {}, collections.Counter()
     budgets = [int(float(b)) for b in opt.chunk_budgets.split(",") if b]

@@ -267,7 +267,7 @@ class RuntimeConfig:
     the main path).
 
     conv_impl: 'cudnn' leaves the UNet's stride-1 3x3 convolutions to
-    ``nn.Conv2d``; 'kernel' sends those inside the kernel's gate to the
+    the library (``models/layers.py``'s ``conv2d``); 'kernel' sends those inside the kernel's gate to the
     hand-written conv3x3 kernel (the VAE stays on cuDNN either way).
 
     mesh_shape: (data, views) ranks of the ``parallel/sharding.py`` mesh

@@ -44,6 +44,7 @@ from ..ops.resample import (ResamplePlan, apply_resample, fill_in,
 from ..ops.resize import nearest_resize
 from ..ops.views import ViewPlan, gather_views, scatter_first_writer
 from ..parallel.sharding import sharded_call
+from ..sched.ddim import DDIMScheduler
 from .background import PadSpec, crop_from_padding, pad_with_background
 
 
@@ -300,15 +301,13 @@ def reduced_resolution_guidance(x0_full, downsampled_latent, uncond_score,
 
 
 def undo_step(sample, generator, sqrt_1m_betas, sqrt_betas, scripted=None):
-    """Repaint re-noising: n sequential micro-steps with fresh noise each.
-    A Python loop of small launches (1000 // steps of them)."""
-    n = len(sqrt_1m_betas)
-    x = sample
-    for i in range(n):
-        if scripted is not None:
-            noise = scripted[i]
-        else:
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                                device=x.device)
-        x = float(sqrt_1m_betas[i]) * x + float(sqrt_betas[i]) * noise
-    return x
+    """Repaint re-noising: n sequential micro-steps with fresh noise each
+    (``DDIMScheduler.undo_step_from_coeffs``), one ``randn`` per micro-step
+    from `generator`, drawn as the step is reached. A Python loop of small
+    launches (1000 // steps of them)."""
+    noises = scripted if scripted is not None else (
+        torch.randn(sample.shape, generator=generator, dtype=sample.dtype,
+                    device=sample.device)
+        for _ in range(len(sqrt_1m_betas)))
+    return DDIMScheduler.undo_step_from_coeffs(sample, noises, sqrt_1m_betas,
+                                               sqrt_betas)

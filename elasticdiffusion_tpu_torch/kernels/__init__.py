@@ -10,7 +10,7 @@ and the dispatch on ``use_kernels``:
 The 3x3 convolution is a configuration of its own, ``conv_impl``, as it is in
 the JAX package (``ED_CONV_IMPL``):
 
-  'cudnn'   ``nn.Conv2d.forward`` (the default)
+  'cudnn'   the library convolution, ``models.layers.conv2d`` (the default)
   'kernel'  the hand-written kernel for a CUDA tensor inside its gate, its
             plain version for a CPU tensor
 """

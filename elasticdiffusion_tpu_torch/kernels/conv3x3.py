@@ -41,7 +41,6 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from . import build, note_launch
 
@@ -167,12 +166,14 @@ def in_gate(x_shape, w_shape) -> bool:
 
 
 def _conv_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, H, W, C), w (3, 3, C, O) -> the fp32 sums (B, H, W, O), no TF32."""
+    """x (B, H, W, C), w (3, 3, C, O) -> the fp32 sums (B, H, W, O), no TF32;
+    on the CPU under the rule of ``models.layers.conv2d``."""
+    from ..models.layers import conv2d  # layers imports this module
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        out = F.conv2d(x.permute(0, 3, 1, 2).float(),
-                       w.permute(3, 2, 0, 1).float(), padding=1)
+        out = conv2d(x.permute(0, 3, 1, 2).float(),
+                     w.permute(3, 2, 0, 1).float(), padding=1)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     return out.permute(0, 2, 3, 1)

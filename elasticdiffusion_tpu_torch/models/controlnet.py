@@ -12,9 +12,9 @@ residual per skip of the down path plus the mid residual, each times
 Its ResNet blocks, transformers and in-gate 3x3 convolutions are the UNet's
 own modules, so they take the GroupNorm, LayerNorm, attention and conv3x3
 kernels under the same ``use_kernels`` / ``conv_impl`` rules. The
-convolutions that the JAX package leaves to XLA stay ``nn.Conv2d`` (cuDNN):
-the conditioning embedding at pixel resolution and the 1x1 zero
-convolutions.
+convolutions that the JAX package leaves to XLA stay library convolutions
+(``layers.Conv2d``, cuDNN on the card): the conditioning embedding at pixel
+resolution and the 1x1 zero convolutions.
 
 Module names follow the diffusers ``ControlNetModel`` checkpoint
 (``controlnet_cond_embedding.blocks.{i}``, ``controlnet_down_blocks.{k}``,
@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..configs import ControlNetConfig
+from .layers import Conv2d
 from .unet import UNetTrunk
 
 
@@ -45,13 +46,13 @@ class ConditioningEmbedding(nn.Module):
         super().__init__()
         k = int(math.log2(downsample_factor))
         ch = block_channels[-(k + 1):]
-        self.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(in_channels, ch[0], 3, padding=1)
         self.blocks = nn.ModuleList()
         for i in range(len(ch) - 1):
-            self.blocks.append(nn.Conv2d(ch[i], ch[i], 3, padding=1))
-            self.blocks.append(nn.Conv2d(ch[i], ch[i + 1], 3, stride=2,
-                                         padding=1))
-        self.conv_out = nn.Conv2d(ch[-1], out_channels, 3, padding=1)
+            self.blocks.append(Conv2d(ch[i], ch[i], 3, padding=1))
+            self.blocks.append(Conv2d(ch[i], ch[i + 1], 3, stride=2,
+                                      padding=1))
+        self.conv_out = Conv2d(ch[-1], out_channels, 3, padding=1)
 
     def forward(self, cond: torch.Tensor) -> torch.Tensor:
         x = F.silu(self.conv_in(cond))
@@ -74,8 +75,8 @@ class ControlNet(UNetTrunk):
             if i < len(bo) - 1:
                 skips.append(c)
         self.controlnet_down_blocks = nn.ModuleList(
-            nn.Conv2d(c, c, 1) for c in skips)
-        self.controlnet_mid_block = nn.Conv2d(bo[-1], bo[-1], 1)
+            Conv2d(c, c, 1) for c in skips)
+        self.controlnet_mid_block = Conv2d(bo[-1], bo[-1], 1)
 
     def forward(self, sample_nchw: torch.Tensor, timesteps,
                 encoder_hidden_states: torch.Tensor,

@@ -9,7 +9,9 @@ the first fusion layer has no ``residual_layer1``: it never runs.
 
 The JAX package computes all of it outside any Pallas kernel (its attention
 is an einsum and a softmax, its LayerNorms XLA's), so here it is plain
-PyTorch in fp32 and launches none of the port's kernels. Tensors are NCHW.
+PyTorch in fp32 and launches none of the port's kernels. Tensors are NCHW;
+the reassemble projections read channels_last views of the token rows,
+and every convolution takes the CPU rule of ``layers.conv2d``.
 ``load_dpt`` reads a transformers ``DPTForDepthEstimation`` directory
 (``config.json`` and its weights, e.g. Intel/dpt-large) into it by name.
 """
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from ..ops.resize import linear_resize
 from .convert import hf_to_port, load_into, load_state_dict
+from .layers import Conv2d, ConvTranspose2d
 from .registry import build_seeded, resolve_device
 
 
@@ -90,8 +93,8 @@ def _vit_forward(layer: nn.Module, x: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def _pre_act(features: int) -> nn.Module:
-    return _node(convolution1=nn.Conv2d(features, features, 3, padding=1),
-                 convolution2=nn.Conv2d(features, features, 3, padding=1))
+    return _node(convolution1=Conv2d(features, features, 3, padding=1),
+                 convolution2=Conv2d(features, features, 3, padding=1))
 
 
 def _pre_act_forward(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -118,23 +121,23 @@ class DPTDepthModel(nn.Module):
                 position_embeddings=nn.Parameter(
                     torch.zeros(1, g0 * g0 + 1, D)),
                 patch_embeddings=_node(
-                    projection=nn.Conv2d(3, D, p, stride=p))),
+                    projection=Conv2d(3, D, p, stride=p))),
             encoder=_node(layer=nn.ModuleList(
                 _vit_layer(c) for _ in range(c.num_layers))))
 
         layers = []
         for nh, fac in zip(c.neck_hidden_sizes, c.reassemble_factors):
             if fac > 1:
-                resize = nn.ConvTranspose2d(nh, nh, int(fac), stride=int(fac))
+                resize = ConvTranspose2d(nh, nh, int(fac), stride=int(fac))
             elif fac < 1:
-                resize = nn.Conv2d(nh, nh, 3, stride=int(round(1 / fac)),
+                resize = Conv2d(nh, nh, 3, stride=int(round(1 / fac)),
                                    padding=1)
             else:
                 resize = nn.Identity()
-            layers.append(_node(projection=nn.Conv2d(D, nh, 1), resize=resize))
+            layers.append(_node(projection=Conv2d(D, nh, 1), resize=resize))
         fusion = []
         for j in range(len(c.neck_hidden_sizes)):
-            f = _node(projection=nn.Conv2d(fh, fh, 1),
+            f = _node(projection=Conv2d(fh, fh, 1),
                       residual_layer2=_pre_act(fh))
             if j > 0:
                 f.residual_layer1 = _pre_act(fh)
@@ -145,14 +148,14 @@ class DPTDepthModel(nn.Module):
                     nn.Sequential(nn.Linear(2 * D, D), nn.GELU())
                     for _ in c.neck_hidden_sizes),
                 layers=nn.ModuleList(layers)),
-            convs=nn.ModuleList(nn.Conv2d(nh, fh, 3, padding=1, bias=False)
+            convs=nn.ModuleList(Conv2d(nh, fh, 3, padding=1, bias=False)
                                 for nh in c.neck_hidden_sizes),
             fusion_stage=_node(layers=nn.ModuleList(fusion)))
         self.head = _node(head=nn.Sequential(
-            nn.Conv2d(fh, fh // 2, 3, padding=1),
+            Conv2d(fh, fh // 2, 3, padding=1),
             nn.Upsample(scale_factor=2.0, mode="bilinear", align_corners=True),
-            nn.Conv2d(fh // 2, 32, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(32, 1, 1), nn.ReLU()))
+            Conv2d(fh // 2, 32, 3, padding=1), nn.ReLU(),
+            Conv2d(32, 1, 1), nn.ReLU()))
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         c = self.config

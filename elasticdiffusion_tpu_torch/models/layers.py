@@ -19,6 +19,21 @@ Every norm and attention module carries ``use_kernels`` ('auto' | 'on' |
 'off', see ``kernels/__init__.py``); ``set_use_kernels`` flips a whole model.
 Every ``Conv3x3`` carries ``conv_impl`` ('cudnn' | 'kernel');
 ``set_conv_impl`` flips a whole model.
+
+Every library convolution of the port goes through ``conv2d`` (``Conv2d``,
+``ConvTranspose2d`` and ``Conv3x3``'s library route are ``nn`` modules
+whose forward calls it). On a CPU tensor it convolves contiguous (NCHW)
+operands, through oneDNN at every batch size, and hands the result back in
+the caller's layout: oneDNN sums a channels_last fp32 convolution about 10x
+less exactly than a contiguous one, and less exactly than XLA, the JAX
+package's. On a CUDA tensor it is ``F.conv2d`` (cuDNN) as it stands.
+
+On the CPU two ops give an image the same result whatever batch it came in
+(a mesh rank runs a share of the batch): ``conv2d``, which takes oneDNN at
+every batch size, and ``RowLinear``, the timestep embedding's and
+``time_emb_proj``'s (batch, features) products computed row by row. The
+attention and the linear projections of (B, N, C) tokens are not
+batch-invariant.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.nn.modules.utils import _pair
 
 from ..kernels import check_conv_impl
 from ..kernels import conv3x3 as conv_kernel
@@ -50,6 +66,94 @@ def set_conv_impl(module: nn.Module, mode: str) -> None:
     for m in module.modules():
         if isinstance(m, Conv3x3):
             m.conv_impl = mode
+
+
+def _like_channels_last(t: torch.Tensor) -> bool:
+    """Whether torch takes a 4-D tensor for channels_last (its
+    ``suggest_memory_format``): strides ordered C, W, H, N."""
+    if t.dim() != 4 or t.stride(1) == 0:
+        return False
+    low = 0
+    for d in (1, 3, 2, 0):
+        if t.shape[d] == 0 or t.stride(d) < low or (
+                d == 0 and low == t.stride(1)):
+            return False
+        low = t.stride(d) * max(t.shape[d], 1)
+    return True
+
+
+def _on_cpu(op, x: torch.Tensor, weight: torch.Tensor, *args):
+    """The CPU rule: `op` on contiguous operands, the result in the layout
+    torch gives the operands as they came (channels_last if either is)."""
+    conv2d.cpu_calls += 1
+    channels_last = _like_channels_last(x) or _like_channels_last(weight)
+    # both operands contiguous: a channels_last weight alone would send the
+    # convolution back to the inexact route
+    y = op(x.contiguous(), weight.contiguous(), *args)
+    return y.contiguous(memory_format=torch.channels_last) \
+        if channels_last else y
+
+
+def _onednn_conv2d(x, weight, bias, stride, padding, dilation, groups):
+    """An fp32 convolution through oneDNN at every batch size. torch sends a
+    small single image to another backend, whose sums differ from oneDNN's:
+    an image's result would then depend on the batch it came in (a rank of
+    a mesh runs a share of the batch)."""
+    if x.dtype != torch.float32 or not torch.backends.mkldnn.is_available() \
+            or not torch.backends.mkldnn.enabled:
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    return torch.mkldnn_convolution(x, weight, bias, _pair(padding),
+                                    _pair(stride), _pair(dilation), groups)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride=1, padding=0,
+           dilation=1, groups=1) -> torch.Tensor:
+    """``F.conv2d``; on a CPU tensor on contiguous operands through oneDNN,
+    the result in the layout ``F.conv2d`` gives these operands (see the
+    module's docstring)."""
+    if x.device.type != "cpu":
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    return _on_cpu(_onednn_conv2d, x, weight, bias, stride, padding,
+                   dilation, groups)
+
+
+# convolutions the CPU rule ran: 0 on a card path
+conv2d.cpu_calls = 0
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and names) whose forward is
+    ``conv2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                      self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (same parameters and names) under the CPU rule
+    of ``conv2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        args = (self.bias, self.stride, self.padding, self.output_padding,
+                self.groups, self.dilation)
+        if x.device.type != "cpu":
+            return F.conv_transpose2d(x, self.weight, *args)
+        return _on_cpu(F.conv_transpose2d, x, self.weight, *args)
+
+
+class RowLinear(nn.Linear):
+    """``nn.Linear`` (same parameters and names) for a (batch, features)
+    input, which a mesh rank sees a share of: on the CPU each row is its own
+    product, since BLAS sums a small product in an order that depends on its
+    row count, and a row's result would depend on the batch it came in."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cpu" or x.dim() != 2 or x.shape[0] < 2:
+            return super().forward(x)
+        return torch.cat([F.linear(r, self.weight, self.bias)
+                          for r in x.split(1)])
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -135,24 +239,24 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, embed_dim)
-        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+        self.linear_1 = RowLinear(in_dim, embed_dim)
+        self.linear_2 = RowLinear(embed_dim, embed_dim)
 
     def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
-class Conv3x3(nn.Conv2d):
+class Conv3x3(Conv2d):
     """3x3 SAME stride-1 convolution; an ``nn.Conv2d`` in its parameters
     (``weight`` (O, C, 3, 3), ``bias``), so state dicts load unchanged.
 
     ``conv_impl`` is the counterpart of the JAX package's ``ED_CONV_IMPL``:
     'cudnn' (the default, as the JAX default is XLA's conv) runs
-    ``nn.Conv2d.forward``; 'kernel' sends an input inside the gate (4-D,
+    ``conv2d``; 'kernel' sends an input inside the gate (4-D,
     ``C % 8 == 0`` and ``O % 8 == 0``) to the hand-written kernel on a CUDA
     tensor and to its plain version on a CPU tensor. Outside the gate
     (``conv_in`` with 4 input channels, ``conv_out`` with 4 output channels)
-    both modes run ``nn.Conv2d.forward``.
+    both modes run ``conv2d``.
 
     The kernel reads the NHWC view of a ``channels_last`` input and the HWIO
     view of a ``channels_last`` weight in place. A weight in another layout
@@ -164,7 +268,7 @@ class Conv3x3(nn.Conv2d):
         super().__init__(in_channels, out_channels, 3, padding=1)
         self.conv_impl = check_conv_impl(conv_impl)
         self._hwio = None  # ((weight version, data_ptr), its HWIO re-layout)
-        # times nn.Conv2d.forward ran on a CUDA tensor inside the gate
+        # times conv2d ran on a CUDA tensor inside the gate
         self.library_cuda_calls = 0
 
     def in_gate(self, x: torch.Tensor) -> bool:
@@ -212,12 +316,12 @@ class ResnetBlock2D(nn.Module):
         self.norm1 = GroupNorm32(in_channels, eps=norm_eps, silu=True,
                                  use_kernels=use_kernels)
         self.conv1 = Conv3x3(in_channels, out_channels)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+        self.time_emb_proj = (RowLinear(temb_channels, out_channels)
                               if temb_channels is not None else None)
         self.norm2 = GroupNorm32(out_channels, eps=norm_eps, silu=True,
                                  use_kernels=use_kernels)
         self.conv2 = Conv3x3(out_channels, out_channels)
-        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor,
@@ -318,7 +422,7 @@ class Transformer2D(nn.Module):
         self.use_linear_projection = use_linear_projection
         self.norm = GroupNorm32(channels, eps=1e-6, use_kernels=use_kernels)
         proj = (lambda: nn.Linear(channels, channels)) if use_linear_projection \
-            else (lambda: nn.Conv2d(channels, channels, 1))
+            else (lambda: Conv2d(channels, channels, 1))
         self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, num_heads, head_dim, context_dim,
@@ -349,7 +453,7 @@ class Downsample2D(nn.Module):
     def __init__(self, channels: int, pad: Tuple[int, int] = (1, 1)):
         super().__init__()
         self.pad = tuple(pad)
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x):
         p0, p1 = self.pad

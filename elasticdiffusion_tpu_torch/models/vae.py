@@ -20,8 +20,8 @@ import torch
 import torch.nn as nn
 
 from ..configs import VAEConfig
-from .layers import (Conv3x3, Downsample2D, GroupNorm32, ResnetBlock2D,
-                     Upsample2D, VAEAttention)
+from .layers import (Conv2d, Conv3x3, Downsample2D, GroupNorm32,
+                     ResnetBlock2D, Upsample2D, VAEAttention)
 
 
 class _Block(nn.Module):
@@ -119,10 +119,10 @@ class AutoencoderKL(nn.Module):
         self.config = config
         self.encoder = Encoder(config, use_kernels)
         self.decoder = Decoder(config, use_kernels)
-        self.quant_conv = nn.Conv2d(2 * config.latent_channels,
-                                    2 * config.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels,
-                                         config.latent_channels, 1)
+        self.quant_conv = Conv2d(2 * config.latent_channels,
+                                 2 * config.latent_channels, 1)
+        self.post_quant_conv = Conv2d(config.latent_channels,
+                                      config.latent_channels, 1)
 
     @property
     def dtype(self) -> torch.dtype:

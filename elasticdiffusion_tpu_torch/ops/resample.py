@@ -18,6 +18,7 @@ becomes an explicit (value, filled-mask) pair.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Optional, Tuple
@@ -249,6 +250,12 @@ def apply_resample(latent: torch.Tensor, plan: ResamplePlan,
     return down, hits[:plan.in_h, :plan.in_w] > 0
 
 
+def nearest_pick_indices(num_blocks: int, device) -> torch.Tensor:
+    """The deterministic top-left pick of resampling step 0: (num_blocks,)
+    int32 zeros on `device`."""
+    return torch.zeros((num_blocks,), dtype=torch.int32, device=device)
+
+
 def update_exclude_mask(exclude_mask: torch.Tensor,
                         pick: torch.Tensor) -> torch.Tensor:
     """Mark the chosen entry of each block as used (out of place)."""
@@ -264,6 +271,12 @@ def get_downsample_size(height: int, width: int, native_resolution: int,
     factor = max(max(height, width) / native_resolution, 1)
     return (int((height // factor) // vae_scale_factor),
             int((width // factor) // vae_scale_factor))
+
+
+def compute_downsampling_size(h: int, w: int,
+                              scale_factor: float) -> Tuple[int, int]:
+    """(floor(h * scale_factor), floor(w * scale_factor))."""
+    return (math.floor(h * scale_factor), math.floor(w * scale_factor))
 
 
 def fill_in(target: torch.Tensor, filled: torch.Tensor, direction: torch.Tensor,

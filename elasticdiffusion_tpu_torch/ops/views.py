@@ -32,6 +32,22 @@ class PlanTensors:
         return cache[key]
 
 
+def get_views(panorama_height: int, panorama_width: int, h_ws: int = 64,
+              w_ws: int = 64, stride: int = 32, vae_scale_factor: int = 8,
+              **_ignored) -> List[Tuple[int, int, int, int]]:
+    """View boxes of a panorama given in pixels: latent-space
+    (h_start, h_end, w_start, w_end) tuples of ``get_views_latent`` over
+    the (height / vae_scale_factor, width / vae_scale_factor) latent grid.
+    Raises ValueError when a size does not divide by the scale factor."""
+    if panorama_height % vae_scale_factor or panorama_width % vae_scale_factor:
+        raise ValueError(
+            f"height {panorama_height} and width {panorama_width} must be "
+            f"divisible by {vae_scale_factor}")
+    return get_views_latent(panorama_height // vae_scale_factor,
+                            panorama_width // vae_scale_factor,
+                            h_ws=h_ws, w_ws=w_ws, stride=stride)
+
+
 def get_views_latent(H: int, W: int, h_ws: int, w_ws: int,
                      stride: int) -> List[Tuple[int, int, int, int]]:
     """View boxes over the latent grid: (h_start, h_end, w_start, w_end)

@@ -35,7 +35,8 @@ of the whole tensor. ``halo_decode`` runs stage b in one of four ways:
               stored: each window of it is recomputed from the
               pre-upsample tensor) from ``group_norm_sums`` window by
               window; ``group_norm_apply`` normalises each window with them.
-              The convs are ``F.conv2d`` with the modules' own weights.
+              The convs are ``layers.conv2d`` with the modules' own
+              weights.
 
 Without the mesh branch, and with ``num_bands`` and ``streamed`` both
 None, the choice is predictive:
@@ -62,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.groupnorm import group_scale_shift, moment_sums, scale_shift
+from ..models.layers import conv2d
 from .sharding import (all_gather_views, all_reduce_views, views_rank,
                        views_size)
 
@@ -113,7 +115,7 @@ def _upsample_read(x_small: torch.Tensor, conv) -> Read:
         s2 = min(max((start - 1) // 2, 0), Hs - ks)
         up = F.interpolate(x_small[:, :, s2:s2 + ks], scale_factor=2.0,
                            mode="nearest")
-        o = F.conv2d(up, conv.weight, conv.bias, padding=1)
+        o = conv2d(up, conv.weight, conv.bias, padding=1)
         # the conv's zero rows at the window's ends are selected only where
         # the window is clamped against a true image edge
         return o[:, :, start - 2 * s2:start - 2 * s2 + n]
@@ -163,8 +165,8 @@ def _nsc_streamed(read: Read, shape, gn, moments, conv, chunk: int,
         start = min(max(r0 - 1, 0), H - win)
         a = scale_shift(_nhwc(read(start, win)), scale, shift, True,
                         gn.use_kernels)
-        o = F.conv2d(a.permute(0, 3, 1, 2), conv.weight, conv.bias,
-                     padding=1)[:, :, r0 - start:r0 - start + chunk]
+        o = conv2d(a.permute(0, 3, 1, 2), conv.weight, conv.bias,
+                   padding=1)[:, :, r0 - start:r0 - start + chunk]
         if skip_read is not None:
             o = o + skip_read(r0, chunk)
         out[:, :, r0:r0 + chunk] = o
@@ -181,7 +183,7 @@ def _resnet_streamed(src, shape, resnet, chunk: int) -> torch.Tensor:
     h = _nsc_streamed(read, shape, resnet.norm1, m1, resnet.conv1, chunk)
     sc = resnet.conv_shortcut
     skip = read if sc is None else (
-        lambda start, n: F.conv2d(read(start, n), sc.weight, sc.bias))
+        lambda start, n: conv2d(read(start, n), sc.weight, sc.bias))
     return _nsc_streamed(_stored_read(h), h.shape, resnet.norm2,
                          _stored_moments(resnet.norm2, h), resnet.conv2, chunk,
                          skip_read=skip)
@@ -231,8 +233,8 @@ def _conv_band(x: torch.Tensor, conv, mesh) -> torch.Tensor:
     top = edges[r - 1][:, :, 1:].contiguous(memory_format=cl) if r else zero
     bottom = edges[r + 1][:, :, :1].contiguous(memory_format=cl) \
         if r < n - 1 else zero
-    return F.conv2d(torch.cat([top, x, bottom], dim=2), conv.weight,
-                    conv.bias, padding=(0, 1))
+    return conv2d(torch.cat([top, x, bottom], dim=2), conv.weight,
+                  conv.bias, padding=(0, 1))
 
 
 def _resnet_band(x: torch.Tensor, resnet, mesh) -> torch.Tensor:

@@ -11,12 +11,15 @@ configs pin down:
       prev = sqrt(a_prev) * x0 + sqrt(1-a_prev) * eps
     where a_prev = alphas_cumprod[t - T//n] (or alphas_cumprod[0] when the
     index goes negative, since set_alpha_to_one=False for all SD configs)
-  - add_noise coefficients (sqrt(a_t), sqrt(1-a_t)) of
-      sqrt(a_t) * x0 + sqrt(1-a_t) * eps
+  - add_noise(x0, eps, t) = sqrt(a_t) * x0 + sqrt(1-a_t) * eps
+  - scale_model_input = identity for DDIM
+  - the repaint re-noise: T//n micro-steps
+      x <- sqrt(1-beta_{t+i}) x + sqrt(beta_{t+i}) eps_i
 
 All tables are numpy constants computed once on the host; the per-step
 coefficients are Python floats, so the update functions work on tensors of
-any device without a transfer.
+any device without a transfer. ``step`` is the eager update at a Python
+step index, in fp32 whatever the sample's dtype.
 """
 
 from __future__ import annotations
@@ -95,6 +98,11 @@ class DDIMScheduler:
     # -- pure ops -----------------------------------------------------------
 
     @staticmethod
+    def scale_model_input(sample, t=None):
+        """The identity: DDIM does not scale the model's input."""
+        return sample
+
+    @staticmethod
     def step_from_coeffs(model_output, sample, coeffs):
         """DDIM update from precomputed coefficients.
 
@@ -105,6 +113,18 @@ class DDIMScheduler:
         x0 = (sample - s1a_t * model_output) / sa_t
         prev = sa_p * x0 + s1a_p * model_output
         return prev, x0
+
+    def step(self, state: DDIMState, model_output, step_index: int, sample):
+        """The update at a Python step index, computed in fp32; returns
+        (prev_sample, pred_original_sample) in the sample's dtype."""
+        prev, x0 = self.step_from_coeffs(model_output.float(), sample.float(),
+                                         self.step_coeffs(state, step_index))
+        return prev.to(sample.dtype), x0.to(sample.dtype)
+
+    def add_noise(self, original_samples, noise, t: int):
+        """sqrt(a_t) * x0 + sqrt(1 - a_t) * eps."""
+        a, b = self.add_noise_coeffs(t)
+        return a * original_samples + b * noise
 
     def add_noise_coeffs(self, t: int):
         a_t = float(self.alphas_cumprod[int(t)])
@@ -123,3 +143,14 @@ class DDIMScheduler:
               if int(timestep) + i < state.config.num_train_timesteps]
         b = self.betas[np.asarray(ts, dtype=np.int64)]
         return (np.sqrt(1.0 - b).astype(np.float32), np.sqrt(b).astype(np.float32))
+
+    @staticmethod
+    def undo_step_from_coeffs(sample, noises, sqrt_1m_betas, sqrt_betas):
+        """The repaint micro-steps with given noises, one per micro-step in
+        order: x <- sqrt_1m_betas[i] x + sqrt_betas[i] noises[i]. `noises` is
+        iterated, so it may draw each noise as its micro-step is reached."""
+        noises = iter(noises)
+        x = sample
+        for s1mb, sb in zip(sqrt_1m_betas, sqrt_betas):
+            x = float(s1mb) * x + float(sb) * next(noises)
+        return x

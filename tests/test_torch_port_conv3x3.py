@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from elasticdiffusion_tpu.kernels.conv3x3 import (
     conv3x3 as j_conv3x3, reference_conv3x3 as j_reference_conv3x3)
@@ -161,7 +162,8 @@ def test_conv3x3_weight_in_another_layout_is_laid_out_once():
                                   "3d_input"])
 def test_gate_leaves_the_rest_to_conv2d(what):
     """conv_in (C=4) and conv_out (O=4) are outside the gate; stride-2 and
-    1x1 convolutions are not Conv3x3 modules at all."""
+    1x1 convolutions are not Conv3x3 modules at all (the library
+    ``Conv2d``)."""
     from elasticdiffusion_tpu_torch.models.unet import UNet2DCondition
     with torch.device("meta"):
         unet = UNet2DCondition(tcfg.UNET_SD1)
@@ -175,10 +177,10 @@ def test_gate_leaves_the_rest_to_conv2d(what):
         assert not tconv.in_gate((1, 8, 8, 320), (3, 3, 320, 4))
     elif what == "stride2":
         conv = unet.down_blocks[0].downsamplers[0].conv
-        assert type(conv) is nn.Conv2d and conv.stride == (2, 2)
+        assert type(conv) is tl.Conv2d and conv.stride == (2, 2)
     elif what == "1x1":
         conv = unet.down_blocks[1].resnets[0].conv_shortcut
-        assert type(conv) is nn.Conv2d and conv.kernel_size == (1, 1)
+        assert type(conv) is tl.Conv2d and conv.kernel_size == (1, 1)
         assert not tconv.in_gate((1, 8, 8, 320), (1, 1, 320, 640))
     else:
         assert not tl.Conv3x3(8, 8).in_gate(torch.zeros(8, 4, 4))
@@ -189,11 +191,21 @@ def test_gate_leaves_the_rest_to_conv2d(what):
     assert len(inside) == 2 * 22 + 3  # 22 resnets, 3 upsamplers
 
 
-def test_outside_the_gate_kernel_mode_runs_conv2d():
+def test_outside_the_gate_kernel_mode_runs_conv2d(monkeypatch):
+    """Outside the gate kernel mode takes the library route: the plain
+    conv3x3 never runs, the result is ``conv2d``'s, and it agrees with
+    ``F.conv2d`` on the same contiguous operands."""
+    def plain(*args):
+        raise AssertionError("the plain conv3x3 ran outside the gate")
+    monkeypatch.setattr(tconv, "reference_conv3x3", plain)
     mod = tl.Conv3x3(4, 16, conv_impl="kernel")
     x = torch.randn(1, 4, 6, 6, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        assert torch.equal(mod(x), nn.Conv2d.forward(mod, x))
+        got = mod(x)
+        assert torch.equal(got, tl.conv2d(x, mod.weight, mod.bias,
+                                          mod.stride, mod.padding))
+        want = F.conv2d(x, mod.weight, mod.bias, mod.stride, mod.padding)
+    assert max_abs(got, want) <= CONV_TOL
 
 
 def test_conv_impl_validation():

@@ -68,16 +68,8 @@ def _latent(seed, h, w):
     return (0.5 * rng.standard_normal((1, 4, h, w))).astype(np.float32)
 
 
-ONEDNN = ("oneDNN's fp32 convolution of channels_last tensors on the CPU "
-          "sums less exactly than torch's native one: with it the full VAE's "
-          "decode misses 3e-5 against the JAX package's, while the port's "
-          "code meets the bar with the native convolution (ROADMAP Queue 3)")
-
-
 @pytest.mark.slow
-@pytest.mark.parametrize("conv", [
-    "native", pytest.param("onednn", marks=pytest.mark.xfail(
-        strict=True, reason=ONEDNN))])
+@pytest.mark.parametrize("conv", ["native", "onednn"])
 @pytest.mark.parametrize("kw", [dict(streamed=True),
                                 dict(num_bands=4, halo=12)],
                          ids=["streamed", "bands"])
@@ -87,7 +79,8 @@ def test_full_vae_halo_branch_matches_jax(kw, conv):
     bands of 8 latent rows with 12 rows of halo a side: every band's window
     is the whole latent here, as in tests/test_halo_decode.py). The port's
     convolutions run on torch's native CPU convolution, and again on
-    oneDNN's (torch's default on this CPU)."""
+    oneDNN's (torch's default on this CPU); both on contiguous operands,
+    the port's CPU rule (``models/layers.py`` ``conv2d``)."""
     jb, tb = full_vae_bundles()
     z = _latent(7, 32, 64)
     want = np.asarray(jhd.halo_decode(jb, jnp.asarray(z), mesh=None, **kw))
