@@ -41,16 +41,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
             within API_TOL_REL
   model     per bundle, one full-width batch-8 UNet forward and one VAE
             decode with the kernels against the same modules with the plain
-            versions; for the bundles that run the conv kernel, the forward
-            with conv_impl='kernel' against conv_impl='cudnn'; for the SDXL
-            ControlNet bundle, one batch-8 ControlNet + UNet forward with
-            every kernel against every plain version and cuDNN convs
+            versions; for the bundles that run the conv kernel and the fp32
+            ones, the forward with conv_impl='kernel' against
+            conv_impl='cudnn' (fp32: also the forward with cuDNN in TF32);
+            for the SDXL ControlNet bundle, one batch-8 ControlNet + UNet
+            forward with every kernel against every plain version and cuDNN
+            convs
   requests  ElasticDiffusion.generate_image answers requests at full width
-            with seeded random weights on five paths, one bundle at a time:
+            with seeded random weights on seven paths, one bundle at a time:
             SDXL 1.0 and SD 1.5 with conv_impl='kernel', SD 2.1 with the
-            default conv_impl='cudnn', and ControlNet text2img on SDXL 1.0
+            default conv_impl='cudnn', ControlNet text2img on SDXL 1.0
             (canny) and SD 1.5 (depth, through the port's DPT-large), both
-            with conv_impl='kernel'. SDXL also answers 2048x2048 px (16
+            with conv_impl='kernel', and --fp32 (fp32 weights and compute,
+            2 steps) under PyTorch's default TF32 flags: SD 1.5 through the
+            CLI's main() with --fp32 true and SD 2.1 with conv_impl='kernel';
+            on those a hook inside every UNet forward must read cuDNN's TF32
+            flag False. SDXL also answers 2048x2048 px (16
             views in one batch) with tiled_decoder=True; SD 2.1 768x768 px
             with the overlap-averaged tiles of a low_vram pipe (their mean
             absolute difference from the monolithic decode is printed); SD
@@ -63,7 +69,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
             any shape among them fails the run. Then the path's first request
             runs again with every plain version and cuDNN convs, same seed:
             its final latents are held to the kernels' (`end_to_end`, rel L2
-            within E2E_TOL_REL_L2), and the random draws of the two runs must
+            within E2E_TOL_REL_L2, E2E_FP32_TOL_REL_L2 on the fp32 paths),
+            and the random draws of the two runs must
             be the same. A ControlNet path also fails when the RMS of the
             ControlNet's mid residual or first down residual is 0 at the
             first step of its first request
@@ -143,6 +150,9 @@ from elasticdiffusion_tpu_torch.utils.flops import (H100_BF16_TFLOPS,
 PEAK_BYTES_PER_S = H100_HBM_GBPS * 1e9
 PEAK_OPS_PER_S = {torch.bfloat16: H100_BF16_TFLOPS * 1e12,
                   torch.float32: H100_FP32_TFLOPS * 1e12}
+# the TF32 tensor-core peak (data sheet), for the floor of the fp32 bodies
+# that run three TF32 passes
+PEAK_TF32_OPS_PER_S = 495e12
 
 ALL_PHASES = ("device", "build", "kernels", "api", "model", "requests",
               "decode", "apps", "mesh")
@@ -251,9 +261,21 @@ def compare(out: torch.Tensor, ref: torch.Tensor):
     return max_abs, rel_l2, tol_abs, tol_rel, why
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple:
+def fma_bound_ms(ops: float) -> float:
+    """fp32 operations over the CUDA cores' fp32 peak: the bound of an fp32
+    body on the FMA units, kept beside the bound of a body in three TF32
+    passes (which can beat it)."""
+    return ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+
+
+def bound(nbytes: float, ops: float, dtype, tf32x3: bool = False) -> tuple:
+    """(ms, "bytes" | "operations"): the larger of the bytes over the memory
+    rate and the operations over the peak of the units that do them. A body
+    in three TF32 passes does three times the operations on the TF32 tensor
+    cores."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = (3.0 * ops / PEAK_TF32_OPS_PER_S if tf32x3
+             else ops / PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -299,7 +321,17 @@ def attention_cases():
     cases.append(("vae_mid", f32, 1, 32768, 32768, 1, 512))
     cases.append(("vae_strip", f32, 1, 2688, 2688, 1, 512))
     cases.append(("vae_strip", f32, 1, 2816, 2816, 1, 512))
-    for D in (40, 80, 160):  # the fp32 instantiations, on no path today
+    # the --fp32 paths: every UNet attention in fp32, at SD 1.5's head dims
+    # (sd15_fp32), SD 2.1's (sd21_fp32) and SDXL's, at the batches the
+    # requests give (8, 2, 3); their VAE decodes in fp32 at 512x768 px
+    for S, H, D in ((4096, 8, 40), (1024, 8, 80), (256, 8, 160),
+                    (4096, 5, 64), (1024, 10, 64), (256, 20, 64),
+                    (4096, 10, 64), (1024, 20, 64)):
+        for B in (8, 2, 3):
+            cases.append(("self", f32, B, S, S, H, D))
+            cases.append(("cross", f32, B, S, 77, H, D))
+    cases.append(("vae_mid", f32, 1, 6144, 6144, 1, 512))
+    for D in (40, 80, 160):  # the fp32 UNet head dims at a shape no path gives
         cases.append(("self", f32, 2, 1024, 1024, 8, D))
     # edges of the wgmma body, on no path: query rows and keys that fill no
     # tile, one key, one key more than the single tile holds, a ring that
@@ -324,6 +356,7 @@ def run_attention(gen, results):
     import torch.nn.functional as F
     from elasticdiffusion_tpu_torch.kernels.flash_attention import (
         attention_plan, flash_attention, reference_attention)
+    f32 = torch.float32
     for tag, dtype, B, Sq, Sk, H, D in attention_cases():
         if not wanted(f"flash_attention/{tag}_{str(dtype)[6:]}_{B}x{Sq}x{H}x{D}_Sk{Sk}"):
             continue
@@ -346,19 +379,32 @@ def run_attention(gen, results):
         isz = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz
         ops = 4.0 * B * H * Sq * Sk * D
-        b_ms, b_by = bound(nbytes, ops, dtype)
-        reps = (1, 5) if b_ms > 5.0 else (3, 15)  # the long fp32 decodes
+        plan = attention_plan(dtype, B, Sq, Sk, H, D)
+        b_ms, b_by = bound(nbytes, ops, dtype, plan.body == "mma.tf32x3")
+        # the fp32 UNet cases at batches 2 and 3 take fewer samples
+        light = dtype == f32 and D != 512 and B != 8
+        reps = (1, 5) if b_ms > 5.0 or light else (3, 15)
         ms = time_ms(lambda: flash_attention(q, k, v), *reps)
-        plain_ms = time_ms(plain, 1, 5)
+        plain_ms = time_ms(plain, 1, 2 if light else 5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                         *reps)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        lib_ms = time_ms(sdpa, *reps)
+        extra = {}
+        if dtype == f32 and D != 512:
+            # which backend SDPA picked for fp32, and its error
+            lib_out = sdpa().transpose(1, 2)
+            lib_abs, lib_rel = compare(lib_out, ref)[:2]
+            extra = {"library_backend": sdpa_backend(qt, kt, vt, lib_out),
+                     "library_max_abs_err": lib_abs,
+                     "library_rel_l2_err": lib_rel}
+            del lib_out
         # short calls again without the host: about 2 ms of launches a replay
         n = max(1, min(20, int(2.0 / ms)))
-        device_ms = graph_ms(lambda: flash_attention(q, k, v), n)
-        lib_device_ms = graph_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt), n)
-        plan = attention_plan(dtype, B, Sq, Sk, H, D)
+        device_ms = graph_ms(lambda: flash_attention(q, k, v), n,
+                             3 if light else 5)
+        lib_device_ms = graph_ms(sdpa, n, 3 if light else 5)
+        if plan.body == "mma.tf32x3":
+            extra["fma_bound_ms"] = fma_bound_ms(ops)
         results.append({
             "name": f"flash_attention/{tag}_{str(dtype)[6:]}_{B}x{Sq}x{H}x{D}_Sk{Sk}",
             "kernel": "flash_attention", "route": "cuda",
@@ -368,16 +414,37 @@ def run_attention(gen, results):
             "log_key": ("flash_attention", str(dtype), B, Sq, Sk, H, D),
             "body": plan.body, "splits": plan.splits,
             "max_abs_err": max_abs, "rel_l2_err": rel_l2,
-            "tol_abs": tol_abs, "tol_rel": tol_rel, "tol_why": why,
+            "tol_abs": tol_abs, "tol_rel": tol_rel,
+            "tol_why": why + ("; the kernel's products in three TF32 passes "
+                              "(the dropped lo*lo below 2^-21 of a product)"
+                              if plan.body == "mma.tf32x3" else ""),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
             "device_ms": device_ms, "library_device_ms": lib_device_ms,
-            "library": "F.scaled_dot_product_attention",
+            "library": "F.scaled_dot_product_attention", **extra,
             "plain": "reference_attention" + (
                 f" in query blocks of {PLAIN_LOGITS // Sk}"
                 if Sq * Sk > PLAIN_LOGITS else "")})
         del q, k, v, out, ref
         torch.cuda.empty_cache()
+
+
+def sdpa_backend(qt, kt, vt, lib_out) -> str:
+    """The backend F.scaled_dot_product_attention took: the one of those
+    that run alone on these inputs whose output is bitwise the default
+    call's."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(qt, kt, vt)
+        except RuntimeError:
+            continue
+        if torch.equal(out.transpose(1, 2), lib_out):
+            return backend.name
+    return "unknown"
 
 
 # logits (query rows x keys) the plain attention takes in one piece; longer
@@ -421,24 +488,27 @@ def layernorm_cases():
     the requests give: 8, 2, 3 and 9 as for attention, 16 for SDXL at
     2048x2048, 4 and 1 on a rank of the mesh phase; SD 1.5's 512x768
     request has 3 views) and the text encoders' 77 tokens. Both keep their
-    weights in the bf16 parameter dtype and use eps 1e-5 (LayerNorm32's
-    default, CLIPTextConfig.layer_norm_eps). Every case is timed in full."""
-    bf = torch.bfloat16
-    unet = (("sdxl", ((4096, 640), (1024, 1280)),
+    weights in the parameter dtype (bf16; fp32 on the --fp32 paths, whose
+    activations are fp32 too) and use eps 1e-5 (LayerNorm32's default,
+    CLIPTextConfig.layer_norm_eps). Every case is timed in full."""
+    bf, f32 = torch.bfloat16, torch.float32
+    sd = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
+    unet = (("sdxl", bf, ((4096, 640), (1024, 1280)),
              (8, 2, 3, 9, 16) + MESH_BATCHES),
-            ("sd15", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
-             (8, 2, 3)),
-            ("sd21", ((4096, 320), (1024, 640), (256, 1280), (64, 1280)),
-             (8, 2, 3, 9)))
+            ("sd15", bf, sd, (8, 2, 3)),
+            ("sd21", bf, sd, (8, 2, 3, 9)),
+            ("sd_fp32", f32, sd, (8, 2, 3)))
     cases, seen = [], set()
-    for tag, shapes, batches in unet:
+    for tag, dtype, shapes, batches in unet:
         for S, C in shapes:
             for B in batches:
-                if (B * S, C) not in seen:
-                    seen.add((B * S, C))
-                    cases.append((tag, bf, bf, 1e-5, B * S, C))
+                if (dtype, B * S, C) not in seen:
+                    seen.add((dtype, B * S, C))
+                    cases.append((tag, dtype, dtype, 1e-5, B * S, C))
     for C in (768, 1280, 1024):  # CLIP L (SD 1.x, SDXL), bigG, OpenCLIP H
         cases.append(("clip", bf, bf, 1e-5, 77, C))
+    for C in (768, 1024):        # CLIP L and OpenCLIP H in fp32
+        cases.append(("clip", f32, f32, 1e-5, 77, C))
     return cases
 
 
@@ -502,7 +572,8 @@ def groupnorm_cases():
     rank of the mesh phase); the VAE decoders (bf16 activations with the fp32 norm
     weights of the compute copy for SD 1.x / 2.x, fp32 for the SDXL
     force_upcast decode) and the fp32 background-strip encodes, all eps 1e-6.
-    `full` (timed in full): batch 8, and every VAE shape."""
+    The --fp32 paths' UNets: the SD 1.x / 2.x shapes in fp32 with fp32
+    weights. `full` (timed in full): batch 8, and every VAE shape."""
     bf, f32 = torch.bfloat16, torch.float32
     T, F_ = True, False
     sdxl = ((128, 320, T), (128, 640, T), (128, 960, T), (64, 320, T),
@@ -523,20 +594,23 @@ def groupnorm_cases():
             cases.append((tag, dtype, w_dtype, eps, B, H, W, C, silu,
                           B == 1 or B == 8))
 
-    for tag, shapes, batches in (("sdxl", sdxl, (8, 2, 3, 9, 16) + MESH_BATCHES),
-                                 ("sd15", sd, (8, 2, 3)),
-                                 ("sd21", sd, (8, 2, 3, 9))):
+    for tag, dtype, shapes, batches in (
+            ("sdxl", bf, sdxl, (8, 2, 3, 9, 16) + MESH_BATCHES),
+            ("sd15", bf, sd, (8, 2, 3)), ("sd21", bf, sd, (8, 2, 3, 9)),
+            ("sd_fp32", f32, sd, (8, 2, 3))):  # the --fp32 paths' UNets
         for S, C, silu in shapes:
             for B in batches:
-                add(tag, bf, bf, 1e-5 if silu else 1e-6, B, S, S, C, silu)
+                add(tag, dtype, dtype, 1e-5 if silu else 1e-6, B, S, S, C,
+                    silu)
     # decoders at latent (h, w): mid block (and its attention's norm), the
     # four up blocks, norm_out. SD 1.x / 2.x bf16 at 512x768 and 768x768
     # px, SD 2.1's low_vram tiles (48x48 latents) and the apps phase's PCA
     # app at 512x512 px; SDXL fp32 at 1024x1536, 1536x1536, 2048x2048 px
-    # and 1024x2048 px (the mesh phase: stage a on every rank)
+    # and 1024x2048 px (the mesh phase: stage a on every rank); SD 1.5 and
+    # 2.1 fp32 (the --fp32 paths) at 512x768 px
     for dtype, latents in ((bf, ((64, 96), (96, 96), (48, 48), (64, 64))),
                            (f32, ((128, 192), (192, 192), (256, 256),
-                                  MESH_LATENT))):
+                                  MESH_LATENT, (64, 96)))):
         for h, w in latents:
             for k, C, silu in ((1, 512, F_), (1, 512, T), (2, 512, T),
                                (4, 512, T), (4, 256, T), (8, 256, T),
@@ -745,6 +819,12 @@ def conv_cases():
         for S, C, O in shapes:
             for B in batches:
                 cases.append((tag, bf, B, S, S, C, O, False, bf))
+    # the sd21_fp32 path (conv_impl="kernel"): SD 2.1's UNet has SD 1.5's
+    # convolutions, in fp32 with fp32 biases; the two upsample convs, which
+    # the bf16 paths share with SDXL's list, are added
+    for S, C, O in sd15 + ((32, 1280, 1280), (64, 640, 640)):
+        for B in (8, 2, 3):
+            cases.append(("sd15", f32, B, S, S, C, O, False, f32))
     cases.append(("ragged", bf, 8, 96, 96, 320, 320, False, f32))
     cases.append(("ragged", bf, 2, 42, 61, 328, 72, False, None))
     cases.append(("ragged", bf, 3, 5, 7, 200, 136, True, bf))
@@ -782,23 +862,36 @@ def run_conv3x3(gen, results):
         ref = reference_conv3x3(x, w, bias, silu)
         max_abs, rel_l2, tol_abs, tol_rel, why = compare(out, ref)
         kernel = lambda: conv3x3(x, w, bias, silu)
-        ms = time_ms(kernel)
-        plain_ms = time_ms(lambda: reference_conv3x3(x, w, bias, silu), 1, 3)
+        # the fp32 path shapes at batches 2 and 3 take fewer samples
+        light = tag == "sd15" and dtype == torch.float32 and B != 8
+        reps = (1, 5) if light else (3, 15)
+        ms = time_ms(kernel, *reps)
+        plain_ms = time_ms(lambda: reference_conv3x3(x, w, bias, silu), 1,
+                           2 if light else 3)
         lib_bias = None if bias is None else bias.to(dtype)
         if silu:
             lib = lambda: F.silu(F.conv2d(x_nchw, w_oihw, lib_bias, padding=1))
         else:
             lib = lambda: F.conv2d(x_nchw, w_oihw, lib_bias, padding=1)
-        lib_ms = time_ms(lib)
+        lib_ms = time_ms(lib, *reps)
+        extra = {}
+        if dtype == torch.float32:
+            # cuDNN in full fp32 (TF32 off): its error against the plain
+            # version
+            lib_abs, lib_rel = compare(lib().permute(0, 2, 3, 1), ref)[:2]
+            extra = {"library_max_abs_err": lib_abs,
+                     "library_rel_l2_err": lib_rel}
         # again without the host: about 2 ms of launches a replay
         n = max(1, min(20, int(2.0 / ms)))
-        device_ms = graph_ms(kernel, n)
-        lib_device_ms = graph_ms(lib, n)
+        device_ms = graph_ms(kernel, n, 3 if light else 5)
+        lib_device_ms = graph_ms(lib, n, 3 if light else 5)
         plan = conv_plan(dtype, B, H, W, C, O)
         nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size() \
             + (0 if bias is None else bias.numel() * bias.element_size())
         ops = 2.0 * 9 * C * O * B * H * W
-        b_ms, b_by = bound(nbytes, ops, dtype)
+        b_ms, b_by = bound(nbytes, ops, dtype, plan.body == "mma.tf32x3")
+        if plan.body == "mma.tf32x3":
+            extra["fma_bound_ms"] = fma_bound_ms(ops)
         results.append({
             "name": name, "kernel": "conv3x3", "route": "cuda",
             "source": "elasticdiffusion_tpu_torch/kernels/csrc/conv3x3.cu",
@@ -806,7 +899,10 @@ def run_conv3x3(gen, results):
             "log_key": ("conv3x3", str(dtype), B, H, W, C, O, silu),
             "max_abs_err": max_abs, "rel_l2_err": rel_l2,
             "tol_abs": tol_abs, "tol_rel": tol_rel,
-            "tol_why": why + "; both sides sum the 9*C exact products in fp32",
+            "tol_why": why + ("; both sides sum the 9*C exact products in fp32"
+                              if dtype == torch.bfloat16 else
+                              "; the kernel's products in three TF32 passes "
+                              "(the dropped lo*lo below 2^-21 of a product)"),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
             "device_ms": device_ms, "library_device_ms": lib_device_ms,
@@ -814,7 +910,7 @@ def run_conv3x3(gen, results):
             "body": plan.body, "splits": plan.splits,
             "plan": {"tile": list(plan.tile), "bn": plan.bn,
                      "stages": plan.stages, "blocks": plan.blocks},
-            "library": "F.conv2d" + (" + F.silu" if silu else "")})
+            "library": "F.conv2d" + (" + F.silu" if silu else ""), **extra})
         del x_nchw, w_oihw, x, w, out, ref
         torch.cuda.empty_cache()
 
@@ -999,7 +1095,109 @@ PATHS = (
      "requests": ({"height": 1024, "width": 1536},)},
     {"name": "sd15_depth", "sd_version": "1.5", "conv_impl": "kernel",
      "controlnet": "depth", "requests": ({"height": 512, "width": 768},)},
+    # --fp32 (fp32 weights and compute; every UNet attention and, with the
+    # conv kernel, every gated conv on the three-pass TF32 bodies), run under
+    # PyTorch's default TF32 flags: SD 1.5 through the CLI's main() with
+    # --fp32 true (cuDNN convs, the CLI's default), SD 2.1 through
+    # generate_image with conv_impl="kernel". Two steps, not the script's
+    # four, to keep the whole script near 300 s (the shapes they launch do
+    # not depend on the step count)
+    {"name": "sd15_fp32", "sd_version": "1.5", "conv_impl": "cudnn",
+     "latent": 64, "fp32": True, "entry": "cli", "steps": 2,
+     "requests": ({"height": 512, "width": 768},)},
+    {"name": "sd21_fp32", "sd_version": "2.1", "conv_impl": "kernel",
+     "latent": 64, "fp32": True, "steps": 2,
+     "requests": ({"height": 512, "width": 768},)},
 )
+
+
+def path_runtime(path):
+    """The RuntimeConfig a path's bundle loads with: the CLI's own for a
+    path driven through the CLI, else bf16 or (fp32 paths) fp32 weights and
+    compute with the path's conv_impl."""
+    from elasticdiffusion_tpu_torch.configs import RuntimeConfig
+    if path.get("entry") == "cli":
+        from elasticdiffusion_tpu_torch.apps import cli
+        rt = cli.runtime_config(cli.build_parser().parse_args(
+            cli_argv(path, path["requests"][0], 1, 0, 0, "unused")))
+        if rt.conv_impl != path["conv_impl"]:
+            fail(f"{path['name']}: the CLI runs conv_impl={rt.conv_impl!r}")
+        return rt
+    if path.get("fp32"):
+        return RuntimeConfig(conv_impl=path["conv_impl"],
+                             param_dtype=torch.float32,
+                             compute_dtype=torch.float32)
+    return RuntimeConfig(conv_impl=path["conv_impl"])
+
+
+def cli_argv(path, req, steps: int, resampling: int, seed: int,
+             outdir: str) -> list:
+    """The command line of one request of a path driven through the CLI."""
+    return ["--sd_version", path["sd_version"], "--H", str(req["height"]),
+            "--W", str(req["width"]), "--steps", str(steps),
+            "--resampling_steps", str(resampling), "--seed", str(seed),
+            "--fp32", "true" if path.get("fp32") else "false",
+            "--outdir", outdir]
+
+
+def run_cli(bundle, path, req, steps: int, resampling: int, seed: int):
+    """One request through the CLI's main() as a user runs it. main() loads
+    its bundle with load_bundle, which here hands it the path's bundle (the
+    architecture and seed-0 random weights the CLI would load, biases and
+    norm weights perturbed as on every path); the pipe main() makes records
+    the final latent each decode starts from. Returns (image (1, 3, H, W) in
+    [0, 1] from the saved PNG, info with the latent and the pipe's
+    last_metrics, generator states)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from elasticdiffusion_tpu_torch.apps import cli
+    from elasticdiffusion_tpu_torch.models import registry
+    made, latents = [], []
+
+    def path_bundle(sd_version, runtime=None, **kw):
+        if sd_version != path["sd_version"] or runtime != bundle.runtime \
+                or kw.get("checkpoint_dir") is not None:
+            fail(f"{path['name']}: the CLI asked for another bundle: "
+                 f"{sd_version} {runtime} {kw}")
+        return bundle
+
+    make_pipe = cli.make_pipe
+
+    def recording_pipe(opt, *a, **k):
+        pipe = make_pipe(opt, *a, **k)
+        decode = pipe.decode_latents
+
+        def recording_decode(lat):
+            latents.append(lat.detach().float().cpu())
+            return decode(lat)
+
+        pipe.decode_latents = recording_decode
+        made.append(pipe)
+        return pipe
+
+    load = registry.load_bundle
+    registry.load_bundle, cli.make_pipe = path_bundle, recording_pipe
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                record_generators() as rec, \
+                contextlib.redirect_stdout(io.StringIO()):
+            save_dir = cli.main(cli_argv(path, req, steps, resampling, seed,
+                                         tmp))
+            torch.cuda.synchronize()
+            img = np.asarray(Image.open(os.path.join(save_dir, "0.png"))
+                             .convert("RGB"))
+    finally:
+        registry.load_bundle, cli.make_pipe = load, make_pipe
+    imgs = (img.astype(np.float32) / 255.0).transpose(2, 0, 1)[None]
+    info = {"latent": torch.cat(latents).numpy(),
+            "last_metrics": made[0].last_metrics}
+    return imgs, info, rec.states()
 
 
 def unet_inputs(bundle, n: int, gen: torch.Generator):
@@ -1025,10 +1223,14 @@ def phase_model(bundle, path):
     gen = torch.Generator(device="cuda").manual_seed(1)
     lat, ctx, kw = unet_inputs(bundle, path["latent"], gen)
     z = torch.randn(1, 4, 64, 96, generator=gen, device="cuda")
-    out = {"phase": "model", "path": path["name"], "tolerance_rel_l2": 5e-2,
-           "tolerance_why": "bf16 activations through the whole network; the "
-                            "kernel and plain norms, and the conv kernel and "
-                            "cuDNN, round and sum at different places"}
+    fp32 = bundle.runtime.compute_dtype == torch.float32
+    out = {"phase": "model", "path": path["name"],
+           "dtype": str(bundle.runtime.compute_dtype),
+           "tolerance_rel_l2": E2E_FP32_TOL_REL_L2 if fp32 else 5e-2,
+           "tolerance_why": E2E_FP32_WHY if fp32 else
+           "bf16 activations through the whole network; the kernel and plain "
+           "norms, and the conv kernel and cuDNN, round and sum at different "
+           "places"}
     unet = lambda: bundle.apply_unet(lat, 501.0, ctx, **kw)
     res = {}
     bundle.set_conv_impl("cudnn")
@@ -1042,7 +1244,18 @@ def phase_model(bundle, path):
     bundle.set_use_kernels("auto")
     checks = [("unet", res["auto"][0], res["off"][0]),
               ("vae_decode", res["auto"][1], res["off"][1])]
-    if path["conv_impl"] == "kernel":
+    if fp32:
+        # what the repair keeps out: the same forward with cuDNN's convs in
+        # TF32 (the module called past the bundle, under the flag's default)
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = bundle.unet(lat, 501.0, ctx, **kw)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        out["unet_rel_l2_if_cudnn_ran_tf32"] = rel_l2(tf32, res["auto"][0])
+        del tf32
+    if path["conv_impl"] == "kernel" or fp32:
         bundle.set_conv_impl("kernel")
         res["conv"] = unet()
         # the two in turns inside one run: kernel, cudnn, cudnn, kernel
@@ -1227,6 +1440,26 @@ E2E_TOL_WHY = ("bf16 activations through 4 steps of 2(rs+1)+V UNet forwards: "
                "0.013-0.018 (the model phase's bar is 5e-2 too)")
 
 
+# The fp32 paths' bar, for the end-to-end check and the model phase alike:
+# the kernels and the plain versions both compute in fp32, so the bar sits
+# between what sound fp32 gives and what one TF32 fault gives.
+E2E_FP32_TOL_REL_L2 = 1e-4
+E2E_FP32_WHY = ("fp32 through every UNet forward and the decode: the "
+                "kernels (attention and conv3x3 in three TF32 passes) and the "
+                "plain versions sum in other orders; the first runs on an "
+                "NVIDIA H100 80GB HBM3 at 700 W measured 8.3e-6 and 9.3e-6 "
+                "end to end and 3.0e-6-3.9e-6 for one batch-8 forward, while "
+                "the same forward with cuDNN's convs in TF32 moved 1.1e-3-"
+                "1.2e-3: the bar lies between, so it fails on TF32 convs")
+
+
+def e2e_tolerance(path) -> tuple:
+    """(rel L2 bar, why) of a path's kernels-against-plain checks."""
+    if path.get("fp32"):
+        return E2E_FP32_TOL_REL_L2, E2E_FP32_WHY
+    return E2E_TOL_REL_L2, E2E_TOL_WHY
+
+
 def scene(height: int, width: int, seed: int):
     """A seeded RGB image of flat shapes on a background, uint8: edges for
     canny and regions for the depth model."""
@@ -1290,6 +1523,8 @@ def generate(pipe, path, req, steps: int, resampling: int, seed: int,
              condition=None, **extra):
     """One request of a path from a seed; (images, info, generator states).
     `extra` goes to generate_image (checkpoint and resume arguments)."""
+    if path.get("entry") == "cli":
+        return run_cli(pipe.bundle, path, req, steps, resampling, seed)
     pipe.seed_everything(seed)
     if condition is not None:
         extra["condition_image"] = condition
@@ -1366,10 +1601,11 @@ def end_to_end(pipe, path, steps: int, resampling: int, kernel_run,
         torch.equal(a, b) for a, b in zip(states, k_states))
     a = torch.as_tensor(k_info["latent"]).float()
     b = torch.as_tensor(info["latent"]).float()
+    tol, why = e2e_tolerance(path)
     return {"request": path["requests"][0], "latent_shape": list(a.shape),
             "rel_l2": rel_l2(a, b), "max_abs": (a - b).abs().max().item(),
             "finite": bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
-            "tolerance_rel_l2": E2E_TOL_REL_L2, "tolerance_why": E2E_TOL_WHY,
+            "tolerance_rel_l2": tol, "tolerance_why": why,
             "generators": len(states), "same_random_draws": same_draws}
 
 
@@ -1417,10 +1653,18 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
             for name, r in (("mid", mid), ("down0", down[0])):
                 residual_rms[name] = r.float().pow(2).mean().sqrt().item()
 
-    hooks = [bundle.unet.register_forward_hook(count("unet"))]
+    # cuDNN's TF32 flag as the UNet and ControlNet forwards read it
+    tf32_read = []
+
+    def read_tf32(module, args):
+        tf32_read.append(torch.backends.cudnn.allow_tf32)
+
+    hooks = [bundle.unet.register_forward_hook(count("unet")),
+             bundle.unet.register_forward_pre_hook(read_tf32)]
     if controlnet is not None:
         hooks += [controlnet.register_forward_hook(count("controlnet")),
-                  controlnet.register_forward_hook(first_residuals)]
+                  controlnet.register_forward_hook(first_residuals),
+                  controlnet.register_forward_pre_hook(read_tf32)]
     kernels.launch_log = collections.Counter()
 
     answers, first = [], None
@@ -1443,7 +1687,8 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
                         "std": float(imgs.std()), "launches": launched,
                         "wall_seconds": wall,
                         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                        "last_metrics": rpipe.last_metrics})
+                        "last_metrics": info.get("last_metrics",
+                                                 rpipe.last_metrics)})
         if req.get("tiled_decoder") and not rpipe.use_halo_decode:
             # the overlap average is an approximation: reported, not gated
             mono = rpipe.decode_latents(torch.as_tensor(info["latent"],
@@ -1498,8 +1743,15 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "cudnn_calls_in_gate": cudnn_in_gate,
           "group_norm_operand_copies": gn_copies,
           "cpu_conv_calls": cpu_calls,
+          "entry": path.get("entry", "generate_image"),
+          "compute_dtype": str(bundle.runtime.compute_dtype),
+          "cudnn_allow_tf32_outside": torch.backends.cudnn.allow_tf32,
+          "cudnn_allow_tf32_in_forwards": sorted(set(tf32_read)),
           "unchecked_launches": unchecked, "end_to_end": e2e,
           "resume": resume})
+    if path.get("fp32") and (True in tf32_read or not tf32_read):
+        fail(f"{path['name']}: an fp32 forward ran with cuDNN's TF32 on "
+             f"(read {sorted(set(tf32_read))})")
     if unchecked:
         fail(f"{path['name']}: kernels launched at shapes that no kernel case "
              f"checks: {sorted(unchecked)}")
@@ -1510,7 +1762,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         fail(f"{path['name']}: the resumed run's final latent differs from "
              f"the uninterrupted run's: {resume}")
     if not (e2e["finite"] and e2e["same_random_draws"]
-            and e2e["rel_l2"] <= E2E_TOL_REL_L2):
+            and e2e["rel_l2"] <= e2e["tolerance_rel_l2"]):
         fail(f"{path['name']}: kernels against plain versions end to end: "
              f"{e2e}")
     if conv_on and cudnn_in_gate:
@@ -2300,7 +2552,10 @@ def main(argv=None) -> int:
     # the checkout must hold the port: fail before any line is printed
     from elasticdiffusion_tpu_torch.kernels import build
 
-    # the port's numerics: fp32 matmuls and fp32 convolutions stay fp32
+    # the port's numerics: fp32 matmuls and fp32 convolutions stay fp32.
+    # The --fp32 paths run under PyTorch's defaults instead, read here
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2328,7 +2583,6 @@ def main(argv=None) -> int:
     budgets = [int(float(b)) for b in opt.chunk_budgets.split(",") if b]
     per_path = {"model", "requests", "decode"} & set(phases)
     if per_path or "apps" in phases:
-        from elasticdiffusion_tpu_torch.configs import RuntimeConfig
         from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
         from elasticdiffusion_tpu_torch.models.registry import load_bundle
         wanted = [p for p in opt.paths.split(",") if p]
@@ -2336,10 +2590,15 @@ def main(argv=None) -> int:
             if path["name"] not in wanted or not (
                     per_path or path["name"] == APPS_PATH):
                 continue
+            if path.get("fp32"):
+                # the package itself must keep fp32 in fp32: PyTorch's
+                # default flags (cuDNN's TF32 on) around the path
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = tf32_defaults
             t0 = time.time()
             bundle = load_bundle(
                 path["sd_version"], seed=opt.seed, device="cuda",
-                runtime=RuntimeConfig(conv_impl=path["conv_impl"]),
+                runtime=path_runtime(path),
                 controlnet_model=path.get("controlnet"))
             moved = perturb_bundle(bundle, opt.seed + 1)
             torch.cuda.synchronize()
@@ -2358,7 +2617,8 @@ def main(argv=None) -> int:
                                         sd_version=path["sd_version"],
                                         controlnet_model=path.get("controlnet"))
                 logs[path["name"]], t = phase_requests(
-                    pipe, path, opt.steps, opt.resampling_steps, checked)
+                    pipe, path, path.get("steps", opt.steps),
+                    opt.resampling_steps, checked)
                 totals.update(t)
                 del pipe
             if "decode" in phases and "decode" in path:
@@ -2371,6 +2631,12 @@ def main(argv=None) -> int:
                                              opt.resampling_steps)
                 totals.update(t)
                 emit({"phase": "apps_seconds", "seconds": time.time() - t0})
+            if path.get("fp32") and (
+                    torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32) != tf32_defaults:
+                fail(f"{path['name']}: the TF32 flags changed under the path")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
             # one bundle at a time on the card
             del bundle
             gc.collect()
@@ -2400,7 +2666,8 @@ def main(argv=None) -> int:
                            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                            "library_ms": r["library_ms"]})
             for extra in ("body", "splits", "plan", "device_ms",
-                          "library_device_ms", "tflops"):
+                          "library_device_ms", "tflops", "fma_bound_ms",
+                          "library_backend"):
                 if extra in r:
                     listed[-1][extra] = r[extra]
         for kernel in (k for k, n in totals.items() if n):

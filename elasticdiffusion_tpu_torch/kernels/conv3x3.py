@@ -17,11 +17,18 @@ Bodies (``conv_plan`` picks one per shape, as a pure function of it):
                 model), one persistent block an SM, and the K loop split
                 (fp32 partial sums in a workspace, summed in split order by
                 a second kernel) where the tiles cannot fill the card.
-  ``fma``       fp32: full-precision FMAs, no TF32.
+  ``mma.tf32x3`` fp32: the same implicit product on the tensor cores in
+                three TF32 passes (each operand split as hi + lo in
+                registers, ``mma.sync``), which keep the fp32 sums to a few
+                units of their last place: 128 consecutive output pixels by
+                64 output channels a tile, a ``cp.async`` ring whose zero
+                fill is the SAME padding, the K loop split (the same
+                workspace and sum kernel) where a cost model says the
+                splits balance the SMs.
 
 Bound on this card: operations, ``2*9*C*O*B*H*W``, against the bf16 tensor
-core peak (fp32: the CUDA-core peak). See the source for what each design
-does about it.
+core peak (fp32: the CUDA-core peak, whatever the body runs on). See the
+source for what each design does about it.
 
 Layout, as the JAX function: ``x (B, H, W, C)``, ``w (3, 3, C, O)``,
 ``bias (O,)``. Both operands are read through their strides when C, the
@@ -56,15 +63,18 @@ SMEM_PER_BLOCK = 232448   # bytes of shared memory one block may use
 WGMMA_TILES = {1: (128, 6, 1), 2: (160, 5, 1), 3: (128, 4, 2),
                4: (160, 4, 2)}
 MAX_SPLITS = 16
-# the fp32 body: 8x16-pixel tiles, 64 output channels, a 10x18 halo
-_HALO, _FMA_BN = 10 * 18, 64
+# the fp32 body (TcConvCfg in csrc/conv3x3.cu): 128 consecutive pixels by 64
+# output channels a tile, K iterations of 32 channels x one tap through a
+# ring of 3 stages of rows padded to 40 floats, 256 threads, two blocks an SM
+TC_BM, TC_BN, TC_BK, TC_STAGES, TC_LD = 128, 64, 32, 3, 40
 
 
 class ConvPlan(NamedTuple):
     """What one launch of ``conv3x3`` runs: the body, its tile and cost."""
-    body: str        # 'wgmma' (bf16) or 'fma' (fp32)
+    body: str        # 'wgmma' (bf16) or 'mma.tf32x3' (fp32)
     code: int        # the C entry's ``plan`` argument
-    tile: tuple      # pixels of a tile: (along W, along H, images)
+    tile: tuple      # pixels of a tile: (along W, along H, images); the
+                     # fp32 body's (128, 1, 1) is 128 consecutive pixels
     bn: int          # output channels of a tile
     stages: int      # tiles in flight in shared memory (1: none)
     splits: int      # work items that share one output tile's K loop
@@ -128,6 +138,48 @@ def wgmma_plan(code: int, B: int, H: int, W: int, C: int, O: int) -> ConvPlan:
                     min(tiles * splits, SM_COUNT), tiles * splits)
 
 
+# A cost model of the fp32 body, used only to choose its K splits: an SM's
+# microseconds for one K iteration of one work item while two or more share
+# it (two blocks are resident), fitted by hand to the body's device times on
+# an H100 at the path shapes (PERF.md); of one item alone on an SM, an
+# estimate (two thirds of the shared rate); and of an item's prologue and
+# epilogue
+_TC_ITER_US, _TC_ALONE_ITER_US, _TC_ITEM_US = 1.6, 2.4, 2.0
+
+
+def _tc_est_us(tiles: int, kiters: int, splits: int, MO: int) -> float:
+    """The SM that gets the most work items runs them at its shared rate
+    (a lone item at its own), plus the split sum's fp32 traffic at about
+    2.5 TB/s and its launch."""
+    k = _ceil(tiles * splits, SM_COUNT)
+    it = _ceil(kiters, splits)
+    t = (k * _TC_ITER_US if k > 1 else _TC_ALONE_ITER_US) * it \
+        + k * _TC_ITEM_US
+    if splits > 1:
+        t += (splits + 1) * MO * 4 / 2.5e6 + 3.0
+    return t
+
+
+def tc_plan(B: int, H: int, W: int, C: int, O: int) -> ConvPlan:
+    """The plan of the fp32 body: its tiles and K splits. The K loop splits
+    only where the tiles cannot fill both block places of every SM (under
+    264: the small latents, and 160 tiles on 132 SMs), into the count the
+    cost model rates fastest: a count replaces a smaller one only if it is
+    5 % faster, and each split keeps at least 9 iterations (one chunk of
+    every tap)."""
+    tiles = _ceil(B * H * W, TC_BM) * _ceil(O, TC_BN)
+    kiters = 9 * _ceil(C, TC_BK)
+    cost = lambda z: _tc_est_us(tiles, kiters, z, B * H * W * O)
+    splits = 1
+    if tiles < 2 * SM_COUNT:
+        for z in range(2, min(MAX_SPLITS, kiters // 9) + 1):
+            if cost(z) < 0.95 * cost(splits):
+                splits = z
+    smem = TC_STAGES * (TC_BM + TC_BN) * TC_LD * 4
+    return ConvPlan("mma.tf32x3", 0, (TC_BM, 1, 1), TC_BN, TC_STAGES, splits,
+                    256, smem, tiles * splits, tiles * splits)
+
+
 def conv_plan(dtype: torch.dtype, B: int, H: int, W: int, C: int,
               O: int) -> ConvPlan:
     """The body, tile and K splits of ``conv3x3`` for one shape; mirrors
@@ -138,10 +190,7 @@ def conv_plan(dtype: torch.dtype, B: int, H: int, W: int, C: int,
     if not (C % 8 == 0 and O % 8 == 0 and min(B, H, W, C, O) >= 1):
         raise ValueError(f"conv3x3 takes C and O multiples of 8, got {C}, {O}")
     if dtype == torch.float32:
-        blocks = B * _ceil(W, 16) * _ceil(H, 8) * _ceil(O, _FMA_BN)
-        smem = (_HALO + 9 * _FMA_BN) * 17 * 4
-        return ConvPlan("fma", 0, (16, 8, 1), _FMA_BN, 1, 1, 256, smem,
-                        blocks, blocks)
+        return tc_plan(B, H, W, C, O)
 
     def cost(plan):
         return (_est_us(plan.code, plan.items // plan.splits,
@@ -198,19 +247,20 @@ def reference_conv3x3(x: torch.Tensor, w: torch.Tensor,
 
 def split_k_conv3x3(x: torch.Tensor, w: torch.Tensor,
                     bias: torch.Tensor | None = None, silu_out: bool = False,
-                    splits: int = 1) -> torch.Tensor:
-    """Plain version of the split-K path of the ``wgmma`` body: the K loop
-    (64-channel chunks x 9 taps, taps fastest) cut into ``splits`` ranges as
-    the kernel cuts it, an fp32 partial sum per range, the partials added in
+                    splits: int = 1, chunk: int = 64) -> torch.Tensor:
+    """Plain version of the split-K path of both bodies: the K loop
+    (``chunk``-channel chunks x 9 taps, taps fastest: 64 channels in the
+    ``wgmma`` body, 32 in the fp32 one) cut into ``splits`` ranges as the
+    kernel cuts it, an fp32 partial sum per range, the partials added in
     split order, then the bias and SiLU in fp32 and one rounding."""
     C = x.shape[-1]
-    kiters = 9 * _ceil(C, 64)
+    kiters = 9 * _ceil(C, chunk)
     total = None
     for lo, hi in split_ranges(kiters, splits):
         mask = torch.zeros(9, C, dtype=torch.float32, device=w.device)
         for it in range(lo, hi):
-            chunk, tap = divmod(it, 9)
-            mask[tap, chunk * 64:(chunk + 1) * 64] = 1.0
+            c, tap = divmod(it, 9)
+            mask[tap, c * chunk:(c + 1) * chunk] = 1.0
         part = _conv_f32(x, w.float() * mask.view(3, 3, C, 1))
         total = part if total is None else total + part
     return _epilogue(total, bias, silu_out, x.dtype)

@@ -59,13 +59,33 @@
 //   * C < 64 runs the same body: TMA fills the rest of the 64-channel box
 //     with zeros.
 //
-// conv3x3_fma_f32, the fp32 body, is that of the port's first conv kernel
-// (the fp32 path exists for precision: full-precision FMAs on the CUDA
-// cores, no TF32): a block owns an 8x16 tile of output pixels and BN output
-// channels, and per chunk of C stages the 10x18 halo'd input tile and the
-// nine (BN, BK) weight slabs in shared memory (cp.async, zero fill where the
-// source does not exist); a thread owns one pixel column of the tile and
-// BN/16 output channels.
+// conv3x3_mma_f32x3, the fp32 body (the UNet's convolutions under --fp32
+// with conv_impl="kernel"), and what it does about its operation bound
+// (three times 2*9*C*O*B*H*W over the TF32 tensor cores' 495 TFLOP/s, 2.5
+// times below the CUDA cores' fp32 bound; the body reaches about a quarter
+// of it):
+//   * The same implicit matrix product, on mma.sync.m16n8k8 with TF32
+//     operands in three passes (sm90.cuh: each operand split as hi + lo in
+//     registers, a_lo b_hi + a_hi b_lo + a_hi b_hi into one fp32
+//     accumulator; the fp32 result to a few units of its last place, where
+//     one TF32 pass keeps about 3 decimal digits). wgmma was not tried: it
+//     would read the weight from shared memory (split once per weight into
+//     two copies for TMA) and the activations split in registers.
+//   * A tile is 128 consecutive output pixels in (b, h, w) order, across
+//     rows and images, by 64 output channels: a pixel's 16-byte cp.async
+//     reads its own (tap-shifted) address, and zero fill where it falls
+//     outside the image is the SAME padding, so small latents waste no part
+//     of a tile. The K loop runs over (32-channel chunk, tap), taps fastest,
+//     through a 3-stage cp.async ring loaded under the products of the stage
+//     before; eight warps of 32 pixels x 32 channels, two blocks an SM.
+//   * The tensor cores' fp32 accumulation does not round to nearest, so a
+//     stage's 12 products a fragment go to registers of their own, and the
+//     running sum is taken in the CUDA cores.
+//   * Where the tiles leave some SMs one item more than others (the small
+//     latents, and 160 tiles on 132 SMs), the plan splits the K loop;
+//     conv3x3_splitk_sum adds the fp32 partials in split order (no
+//     atomics), then the bias and SiLU.
+//   * Epilogue from registers: bias and SiLU on the fp32 sum, NHWC store.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -78,11 +98,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TH = 8, TW = 16;             // output pixels of a block
-constexpr int HH = TH + 2, HW = TW + 2;    // with the halo
-constexpr int HALO = HH * HW;
-constexpr int THREADS = 256;
-
 struct ConvParams {
   const void* x;
   const void* w;
@@ -93,11 +108,10 @@ struct ConvParams {
   long long w_sy, w_sx, w_so;  // element strides of w[dy][dx][c][o]; c stride 1
   int bias_kind;               // 0 none, 1 fp32, 2 bf16
   int silu;
-  int tiles_x;
   // the wgmma body: pixel tile (tw x th x tb = 128 or 256 pixels), tiles
   // along H, output-channel tiles, K splits and their fp32 workspace
-  // (splits, B*H*W, O)
-  int tw, th, tb, tiles_y, tiles_n, splits;
+  // (splits, B*H*W, O); the fp32 body: its K splits and workspace
+  int tiles_x, tw, th, tb, tiles_y, tiles_n, splits;
   float* ws;
 };
 
@@ -113,104 +127,174 @@ __device__ __forceinline__ float finish(float v, int silu) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32: full-precision FMA body
+// fp32: three TF32 passes on the tensor cores
 // ---------------------------------------------------------------------------
 
-template <int BN, int BK>
-struct FmaCfg {
-  static constexpr int LD = BK + 1;  // floats; odd stride kills conflicts
-  static constexpr size_t SMEM = (size_t)(HALO + 9 * BN) * LD * sizeof(float);
+// A tile of BM consecutive output pixels (in (b, h, w) order, across rows
+// and images) by BN output channels; the K loop over (BK-channel chunk, tap),
+// taps fastest, through a cp.async ring of STAGES stages. Eight warps of 32
+// pixels x 32 channels. Rows of a stage are BK floats padded to LD: the
+// fragment reads (8 bytes at 8 ks + 2 t of four rows a half-warp) meet no
+// bank twice with LD = 8 mod 32.
+struct TcConvCfg {
+  static constexpr int BM = 128, BN = 64, BK = 32, STAGES = 3, THREADS = 256;
+  static constexpr int LD = BK + 8;
+  static constexpr int A_FLOATS = BM * LD, B_FLOATS = BN * LD;
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_FLOATS * sizeof(float);
+  static_assert(SMEM <= 232448 / 2, "two blocks an SM");
 };
 
-template <int BN, int BK>
-__global__ void __launch_bounds__(THREADS) conv3x3_fma_f32(ConvParams p) {
-  constexpr int LD = FmaCfg<BN, BK>::LD;
-  constexpr int CPR = BK / 4;  // 16-byte chunks per row
-  constexpr int NJ = BN / 16;  // output channels of a thread
-  static_assert(THREADS == 16 * TW && BN % 16 == 0 && BK % 4 == 0,
-                "tile shape");
+// Split z of p.splits takes K iterations [I z / splits, I (z+1) / splits)
+// of the I = 9 ceil(C / BK); with one split the block writes y, with more
+// its fp32 partial sums go to p.ws and conv3x3_splitk_sum adds them.
+__global__ void __launch_bounds__(256, 2) conv3x3_mma_f32x3(ConvParams p) {
+  using Cfg = TcConvCfg;
+  constexpr int BM = Cfg::BM, BN = Cfg::BN, BK = Cfg::BK, LD = Cfg::LD,
+                STAGES = Cfg::STAGES;
+  extern __shared__ __align__(16) float smf[];
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Xs = reinterpret_cast<float*>(smem_raw);  // [HALO][LD]
-  float* Ws = Xs + HALO * LD;                      // [9][BN][LD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;  // pixels 32 wm.., channels 32 wn..
+  const int HW = p.H * p.W;
+  const long long M = (long long)p.B * HW;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int o0 = blockIdx.y * BN, split = blockIdx.z;
+  const int kiters = 9 * ((p.C + BK - 1) / BK);
+  const int k_begin = (int)((long long)kiters * split / p.splits);
+  const int nk = (int)((long long)kiters * (split + 1) / p.splits) - k_begin;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output channels tx + 16 j
-  const int tc = tid / 16;  // pixel column of the tile; rows 0..TH-1
-  const int ty0 = (blockIdx.x / p.tiles_x) * TH;
-  const int tx0 = (blockIdx.x % p.tiles_x) * TW;
-  const int o0 = blockIdx.y * BN, b = blockIdx.z;
-
-  const float* xb = static_cast<const float*>(p.x) + (long long)b * p.x_sb;
+  const float* xp = static_cast<const float*>(p.x);
   const float* wp = static_cast<const float*>(p.w);
-
-  float acc[TH][NJ];
+  // this thread's share of a stage: 16 bytes (channels 4 lc..) of pixel rows
+  // lr + 32 i (i < 4) and of output-channel rows lr + 32 i (i < 2)
+  const int lr = tid >> 3, lc = tid & 7;
+  long long xoff[4];
+  int py[4], px[4];
 #pragma unroll
-  for (int i = 0; i < TH; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < p.C; c0 += BK) {
-    __syncthreads();
-    for (int idx = tid; idx < HALO * CPR; idx += THREADS) {
-      const int px = idx / CPR, ch = idx % CPR;
-      const int gy = ty0 + px / HW - 1, gx = tx0 + px % HW - 1;
-      const int c = c0 + ch * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W && c < p.C)
-        v = *reinterpret_cast<const float4*>(xb + gy * p.x_sh + gx * p.x_sw + c);
-      float* d = Xs + px * LD + ch * 4;
-      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + lr + 32 * i;
+    py[i] = -2;  // past M: every tap reads zeros
+    px[i] = 0;
+    xoff[i] = 0;
+    if (m < M) {
+      const int b = (int)(m / HW), r = (int)(m % HW);
+      py[i] = r / p.W;
+      px[i] = r % p.W;
+      xoff[i] = b * p.x_sb + py[i] * p.x_sh + px[i] * p.x_sw;
     }
-    for (int idx = tid; idx < 9 * BN * CPR; idx += THREADS) {
-      const int row = idx / CPR, ch = idx % CPR;
-      const int tap = row / BN, o = o0 + row % BN;
-      const int c = c0 + ch * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (o < p.O && c < p.C)
-        v = *reinterpret_cast<const float4*>(
-            wp + (tap / 3) * p.w_sy + (tap % 3) * p.w_sx + o * p.w_so + c);
-      float* d = Ws + row * LD + ch * 4;
-      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-    }
-    __syncthreads();
+  }
 
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
+  auto issue = [&](int i) {
+    if (i < nk) {
+      const int k = k_begin + i, c = (k / 9) * BK + 4 * lc, tap = k % 9;
       const int dy = tap / 3, dx = tap % 3;
-      const float* xcol = Xs + (dy * HW + tc + dx) * LD;
-      const float* wrow = Ws + (tap * BN + tx) * LD;
-#pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
-        float av[TH], bv[NJ];
+      float* as = smf + (i % STAGES) * Cfg::STAGE_FLOATS;
+      float* bs = as + Cfg::A_FLOATS;
+      const bool cin = c < p.C;  // C is a multiple of 4: whole 16 bytes
 #pragma unroll
-        for (int i = 0; i < TH; ++i) av[i] = xcol[i * HW * LD + k];
+      for (int r = 0; r < 4; ++r) {
+        const int y = py[r] + dy - 1, x = px[r] + dx - 1;
+        const bool ok = cin && y >= 0 && y < p.H && x >= 0 && x < p.W;
+        const float* src =
+            xp + xoff[r] + (dy - 1) * p.x_sh + (dx - 1) * p.x_sw + c;
+        cp_async16(as + (lr + 32 * r) * LD + 4 * lc, ok ? src : xp,
+                   ok ? 16 : 0);
+      }
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) bv[j] = wrow[16 * j * LD + k];
-#pragma unroll
-        for (int i = 0; i < TH; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int r = 0; r < 2; ++r) {
+        const int o = o0 + lr + 32 * r;
+        const bool ok = cin && o < p.O;
+        cp_async16(bs + (lr + 32 * r) * LD + 4 * lc,
+                   ok ? wp + dy * p.w_sy + dx * p.w_sx + o * p.w_so + c : wp,
+                   ok ? 16 : 0);
       }
     }
-  }
+    cp_async_commit();
+  };
 
-  float* yb = static_cast<float*>(p.y);
-  const int gx = tx0 + tc;
-  if (gx >= p.W) return;
+  float acc[2][4][4];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int o = o0 + tx + 16 * j;
-    if (o >= p.O) continue;
-    const float bo = load_bias(p, o);
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int i = 0; i < TH; ++i) {
-      const int gy = ty0 + i;
-      if (gy < p.H)
-        yb[(((long long)b * p.H + gy) * p.W + gx) * p.O + o] =
-            finish(acc[i][j] + bo, p.silu);
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<STAGES - 2>();  // stage i landed for this thread
+    __syncthreads();  // ... for all; the slot of stage i - 1 is free again
+    issue(i + STAGES - 1);
+    const float* as = smf + (i % STAGES) * Cfg::STAGE_FLOATS + wm * 32 * LD;
+    const float* bs = smf + (i % STAGES) * Cfg::STAGE_FLOATS + Cfg::A_FLOATS +
+                      wn * 32 * LD;
+    // the stage's products into registers of their own, then added to the
+    // sum in the CUDA cores: the tensor cores' accumulation does not round
+    // to nearest, and a sum carried through all 9 C products drifts toward
+    // zero (rel L2 2e-5 at C = 320, 1.5e-4 at 2560 in a development run)
+    float part[2][4][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[a][n][e] = 0.f;
+    // four k-steps of 8 channels (sm90.cuh, ld_chunk)
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        float lo[2], hi[2];
+        ld_chunk<8>(lo, as + (16 * a + g) * LD + 8 * ks + 2 * t);
+        ld_chunk<8>(hi, as + (16 * a + g + 8) * LD + 8 * ks + 2 * t);
+        split_a(lo[0], hi[0], lo[1], hi[1], ah[a], al[a]);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float bf[2];
+        uint32_t bh[2], bl[2];
+        ld_chunk<8>(bf, bs + (8 * n + g) * LD + 8 * ks + 2 * t);
+        split_b(bf[0], bf[1], bh, bl);
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+          mma_tf32x3(part[a][n], ah[a], al[a], bh, bl);
+      }
     }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][n][e] += part[a][n][e];
   }
+  cp_async_wait<0>();
+
+  // a thread holds channels 8n + 2t + {0, 1} of pixels g and g + 8 of each
+  // 16-pixel row tile
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long m = m0 + wm * 32 + 16 * a + g + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int o = o0 + wn * 32 + 8 * n + 2 * t;
+        if (o >= p.O) continue;  // O is a multiple of 8: o + 1 < O too
+        const float v0 = acc[a][n][2 * half], v1 = acc[a][n][2 * half + 1];
+        if (p.splits == 1)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.y) + m * p.O + o) =
+              make_float2(finish(v0 + load_bias(p, o), p.silu),
+                          finish(v1 + load_bias(p, o + 1), p.silu));
+        else
+          *reinterpret_cast<float2*>(p.ws + (split * M + m) * p.O + o) =
+              make_float2(v0, v1);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -401,7 +485,20 @@ __global__ void __launch_bounds__(384, 1)
 }
 
 // y = act(bias + sum of the splits' partial sums, split 0 first), rounded
-// once; four outputs a thread
+// once to OutT; four outputs a thread
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(bf16* dst, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
+
+template <typename OutT>
 __global__ void __launch_bounds__(256) conv3x3_splitk_sum(ConvParams p) {
   const long long MO = (long long)p.B * p.H * p.W * p.O;
   const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
@@ -415,28 +512,37 @@ __global__ void __launch_bounds__(256) conv3x3_splitk_sum(ConvParams p) {
     s.w += t.w;
   }
   const int o = (int)(i % p.O);
-  __nv_bfloat162 lo = __floats2bfloat162_rn(
-      finish(s.x + load_bias(p, o), p.silu),
-      finish(s.y + load_bias(p, o + 1), p.silu));
-  __nv_bfloat162 hi = __floats2bfloat162_rn(
-      finish(s.z + load_bias(p, o + 2), p.silu),
-      finish(s.w + load_bias(p, o + 3), p.silu));
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(static_cast<bf16*>(p.y) + i) = packed;
+  store4(static_cast<OutT*>(p.y) + i,
+         make_float4(finish(s.x + load_bias(p, o), p.silu),
+                     finish(s.y + load_bias(p, o + 1), p.silu),
+                     finish(s.z + load_bias(p, o + 2), p.silu),
+                     finish(s.w + load_bias(p, o + 3), p.silu)));
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int bn, const ConvParams& p,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int tiles_y = (p.H + TH - 1) / TH;
-  dim3 grid(p.tiles_x * tiles_y, (p.O + bn - 1) / bn, p.B);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+template <typename OutT>
+cudaError_t launch_splitk_sum(const ConvParams& p, cudaStream_t stream) {
+  const long long groups = (long long)p.B * p.H * p.W * p.O / 4;
+  conv3x3_splitk_sum<OutT>
+      <<<(unsigned)((groups + 255) / 256), 256, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+cudaError_t launch_mma_f32(const ConvParams& p, cudaStream_t stream) {
+  using Cfg = TcConvCfg;
+  const int kiters = 9 * ((p.C + Cfg::BK - 1) / Cfg::BK);
+  if (p.splits < 1 || p.splits > kiters || (p.splits > 1 && p.ws == nullptr))
+    return cudaErrorInvalidValue;
+  auto kernel = conv3x3_mma_f32x3;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long M = (long long)p.B * p.H * p.W;
+  dim3 grid((unsigned)((M + Cfg::BM - 1) / Cfg::BM),
+            (p.O + Cfg::BN - 1) / Cfg::BN, p.splits);
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  return launch_splitk_sum<float>(p, stream);
 }
 
 // The tensor maps are encoded on the host at every launch and travel by
@@ -470,9 +576,7 @@ cudaError_t launch_wgmma(ConvParams p, cudaStream_t stream) {
   kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(map_x, map_w, p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
-  const long long groups = (long long)p.B * p.H * p.W * p.O / 4;
-  conv3x3_splitk_sum<<<(unsigned)((groups + 255) / 256), 256, 0, stream>>>(p);
-  return cudaGetLastError();
+  return launch_splitk_sum<bf16>(p, stream);
 }
 
 }  // namespace
@@ -482,11 +586,12 @@ extern "C" const char* ed_cuda_error_string(int code) {
 }
 
 // dtype of x, w and y: 0 = bf16, 1 = fp32. bias_kind: 0 none, 1 fp32,
-// 2 bf16. plan: 0 = the fp32 FMA body; 1-4 = the bf16 wgmma body with 128 pixels by 128 (1) or 160 (2)
-// output channels a tile, or 256 pixels by 128 (3) or 160 (4), a (tw, th,
-// tb) pixel tile of that many pixels, and `splits` K splits whose partial
-// sums go to `ws` (splits x B*H*W x O floats; unused at one split). Returns a cudaError_t, or -1 for a (dtype, plan) that has no
-// kernel.
+// 2 bf16. plan: 0 = the fp32 body (three TF32 passes; tw, th, tb unused);
+// 1-4 = the bf16 wgmma body with 128 pixels by 128 (1) or 160 (2) output
+// channels a tile, or 256 pixels by 128 (3) or 160 (4), a (tw, th, tb) pixel
+// tile of that many pixels. Both take `splits` K splits whose partial sums
+// go to `ws` (splits x B*H*W x O floats; unused at one split). Returns a
+// cudaError_t, or -1 for a (dtype, plan) that has no kernel.
 extern "C" int ed_conv3x3(const void* x, const void* w, const void* bias,
                           void* y, int B, int H, int W, int C, int O,
                           long long x_sb, long long x_sh, long long x_sw,
@@ -501,7 +606,7 @@ extern "C" int ed_conv3x3(const void* x, const void* w, const void* bias,
   p.w_sy = w_sy; p.w_sx = w_sx; p.w_so = w_so;
   p.bias_kind = bias_kind;
   p.silu = silu;
-  p.tiles_x = (W + TW - 1) / TW;
+  p.tiles_x = 0;
   p.tw = tw; p.th = th; p.tb = tb;
   p.tiles_y = 0; p.tiles_n = 0;
   p.splits = splits;
@@ -511,9 +616,6 @@ extern "C" int ed_conv3x3(const void* x, const void* w, const void* bias,
   if (dtype == 0 && plan == 2) return (int)launch_wgmma<160, 5, 1>(p, st);
   if (dtype == 0 && plan == 3) return (int)launch_wgmma<128, 4, 2>(p, st);
   if (dtype == 0 && plan == 4) return (int)launch_wgmma<160, 4, 2>(p, st);
-  if (dtype == 1 && plan == 0) {
-    using Cfg = FmaCfg<64, 16>;
-    return (int)launch(conv3x3_fma_f32<64, 16>, Cfg::SMEM, 64, p, st);
-  }
+  if (dtype == 1 && plan == 0) return (int)launch_mma_f32(p, st);
   return -1;
 }

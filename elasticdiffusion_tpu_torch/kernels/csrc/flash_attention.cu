@@ -33,13 +33,20 @@
 //                       SD 1.x / 2.x decodes): the wgmma body with the head
 //                       dim split over two consumer warpgroups and split
 //                       keys, described further below.
-//   flash_fma_f32       fp32 inputs at head dims 40 / 64 / 80 / 160 (on no
-//                       path), full-precision FMA products.
-// No fp32 body uses TF32 or the tensor cores: the JAX kernel pins both
-// products to Precision.HIGHEST, and the fp32 path exists for precision.
+//   flash_mma_f32x3     fp32 inputs at head dims 40 / 64 / 80 / 160 (every
+//                       UNet attention under --fp32): both products in
+//                       three TF32 passes on the tensor cores, described
+//                       further below.
+// The fp32 bodies keep fp32 accuracy: flash_fma_f32_d512 in full-precision
+// FMAs, as the JAX kernel's Precision.HIGHEST; flash_mma_f32x3 in three TF32
+// passes, each operand split as hi + lo, which hold the fp32 product to a
+// few units of its last place (the JAX one-shot kernel it replaces pins
+// Precision.DEFAULT, one bf16 pass on a TPU; the port holds fp32 to 2e-5).
 //
 // Bound on this card: operations (4*B*H*Sq*Sk*D over the bf16 tensor-core
-// peak, or the 67 TFLOP/s fp32 peak of the CUDA cores) for self-attention;
+// peak; in fp32 at D = 512 over the CUDA cores' 67 TFLOP/s, and three times
+// as many over the TF32 tensor cores' 495 at the other head dims, which run
+// three TF32 passes) for self-attention;
 // the q and output bytes for cross-attention (Sk = 77). At D = 64 a 128-key
 // tile costs the tensor cores and the exponential unit about the same number
 // of cycles, so the two must overlap.
@@ -154,14 +161,39 @@
 //     (m, l) to a workspace, and flash_combine merges them in split order
 //     and writes bf16. No atomics.
 //
-// flash_fma_f32 keeps the structure of the port's first attention kernel. A
-// block owns BM query rows. Per key tile: (1) S = Q K^T goes to shared
-// memory, (2) all threads run the online-softmax update row by row and leave
-// P in shared memory, (3) O += P V with the D columns of the accumulator
-// split across the warps of the block. A head dim that is not a multiple of
-// the 32 lanes is padded with zeros in shared memory only (40 -> 64, 80 ->
-// 96): global rows keep their true width, pad columns add exact zeros to
-// Q.K^T, and the pad columns of O are never stored.
+// flash_mma_f32x3, and what it does about its operation bound (three TF32
+// passes over the tensor cores' 495 TFLOP/s, 2.5 times below the CUDA
+// cores' fp32 bound; the body reaches about a fifth of it at 4096 tokens):
+//   * Both products are mma.sync.m16n8k8 with TF32 operands, three passes
+//     each (sm90.cuh: a_lo b_hi + a_hi b_lo + a_hi b_hi into one fp32
+//     accumulator; the dropped a_lo b_lo is below 2^-21 of the product).
+//     Operands are split in registers as they are read: each value of Q once
+//     for a tile, of K, V and P once a warp. Four warps of 16 query rows a
+//     block (two warps, to fill the card at batches 2 and 3 at 256 tokens,
+//     were slower at every shape in a development run).
+//   * The tensor cores' fp32 accumulation does not round to nearest: a sum
+//     carried through thousands of products drifts toward zero (3e-5 rel
+//     L2 at 4096 keys). So each key tile's P V goes to registers of its
+//     own, and O = alpha O + P V is taken in the CUDA cores; S is fresh at
+//     every tile (at most 60 products).
+//   * wgmma (not tried) reads its B operand from shared memory, K-major in
+//     TF32: V is MN-major, so every K and V tile would need a split (and V
+//     a transposed) copy there before the tensor cores could read it.
+//     mma.sync takes its TF32 fragments from registers, so K and V are read
+//     once from the tile that cp.async wrote.
+//   * The order of the reduction dim inside a product is free, so Q and K
+//     are read in chunks of 32 head dims with two 16-byte loads a fragment
+//     row (sm90.cuh, ld_chunk). P V takes P from S's accumulator registers
+//     (k-step j: keys 8j + 2t and 8j + 2t + 1, read in that order from V's
+//     rows), so S and P never pass through shared memory, and the online
+//     softmax runs on those registers as in the bf16 body (softmax_regs).
+//   * D = 40 and 80 compute on exactly D columns: chunks of 32, then one of
+//     8 or 16 head dims for Q K^T, and D / 8 column tiles of P V.
+//   * K and V tiles (64 keys; 32 at D = 80 and 160) stream through a
+//     cp.async ring of 2 stages with zero fill past Sk, loaded under the
+//     products of the tile before; keys past Sk are masked to -inf before
+//     the max. Rows of LD = 4 mod 32 floats keep the fragment reads free of
+//     bank conflicts.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -186,43 +218,6 @@ struct AttnParams {
   long long v_sb, v_ss, v_sh;
   float c;  // softmax scale * log2(e)
 };
-
-// One key tile of the online softmax. S holds the raw scores of BM rows;
-// THREADS / BM neighbouring lanes share a row. Leaves P in place of S, and
-// updates the running max m, the running denominator l and the rescale
-// factor alpha of every row.
-template <int BM, int BN, int THREADS>
-__device__ __forceinline__ void softmax_tile(float* S, int lds, float* m_s,
-                                             float* l_s, float* alpha_s,
-                                             int valid_cols, float c, int tid) {
-  constexpr int TPR = THREADS / BM;  // threads per row: power of two <= 32
-  static_assert(TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0, "TPR");
-  const int row = tid / TPR, sub = tid % TPR;
-  float* srow = S + row * lds;
-  float mx = -INFINITY;
-  for (int j = sub; j < BN; j += TPR)
-    if (j < valid_cols) mx = fmaxf(mx, srow[j]);
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  const float m_old = m_s[row];
-  const float m_new = fmaxf(m_old, mx);
-  float sum = 0.f;
-  for (int j = sub; j < BN; j += TPR) {
-    const float p = (j < valid_cols) ? exp2f((srow[j] - m_new) * c) : 0.f;
-    sum += p;
-    srow[j] = p;
-  }
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (sub == 0) {
-    const float alpha = exp2f((m_old - m_new) * c);  // 0 on the first tile
-    m_s[row] = m_new;
-    l_s[row] = l_s[row] * alpha + sum;
-    alpha_s[row] = alpha;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16, head dim 64: wgmma + TMA body
@@ -896,153 +891,183 @@ __global__ void __launch_bounds__(W512Cfg::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: full-precision FMA body
+// fp32, head dims 40 / 64 / 80 / 160: three TF32 passes on the tensor cores
 // ---------------------------------------------------------------------------
 
-template <int D, int BM, int BN>
-struct FmaCfg {
-  static constexpr int THREADS = 256;
-  static constexpr int DP = (D + 31) / 32 * 32;  // padded to the 32 lanes
-  static constexpr int LDQ = DP + 1;  // floats; odd stride kills conflicts
-  static constexpr int LDV = DP;
-  static constexpr int LDS = BN + 1;
+// NW warps of 16 query rows; BN keys a tile; STAGES (K, V) tiles in the
+// ring. Rows of Q, K and V are D floats padded to LD = 4 mod 32, so that
+// the fragment reads of a quarter-warp (two rows, four lanes each) and the
+// scalar V reads of a warp meet no bank twice.
+template <int D, int NW, int BN, int STAGES>
+struct TcCfg {
+  static constexpr int BM = 16 * NW, THREADS = 32 * NW;
+  static constexpr int LD = (D + 31) / 32 * 32 + 4;
   static constexpr size_t SMEM =
-      (size_t)(BM * LDQ + BN * LDQ + BN * LDV + BM * LDS + 3 * BM) *
-      sizeof(float);
+      (size_t)(BM + STAGES * 2 * BN) * LD * sizeof(float);
+  static_assert(D % 32 == 0 || D % 32 == 8 || D % 32 == 16, "head dim");
+  static_assert(BN % 8 == 0 && STAGES >= 2, "tile");
+  static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-template <int D, int DP, int LDX, int THREADS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long row_stride, int rows,
-                                              int valid_rows, int tid) {
-  constexpr int CPR = DP / 4;  // 16-byte chunks per row
-  for (int idx = tid; idx < rows * CPR; idx += THREADS) {
-    const int r = idx / CPR, cc = idx % CPR;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid_rows && cc < D / 4)
-      val = *reinterpret_cast<const float4*>(src + (long long)r * row_stride +
-                                             cc * 4);
-    float* d = dst + r * LDX + cc * 4;
-    d[0] = val.x;
-    d[1] = val.y;
-    d[2] = val.z;
-    d[3] = val.w;
+// S (this warp's 16 rows x BN keys) += Q K^T over the W head dims of one
+// chunk: q and k point at the chunk's first column of the warp's first Q
+// row and of the tile's first key. Q is split once for all the tile's keys.
+template <int W, int BN, int LD>
+__device__ __forceinline__ void qk_chunk(float (&s)[BN / 2], const float* q,
+                                         const float* k, int g, int t) {
+  constexpr int F = W / 4, KS = W / 8;
+  float qa[F], qb[F];
+  ld_chunk<W>(qa, q + g * LD + F * t);
+  ld_chunk<W>(qb, q + (g + 8) * LD + F * t);
+  uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    split_a(qa[2 * ks], qb[2 * ks], qa[2 * ks + 1], qb[2 * ks + 1], ah[ks],
+            al[ks]);
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+    float kf[F];
+    ld_chunk<W>(kf, k + (8 * n + g) * LD + F * t);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t bh[2], bl[2];
+      split_b(kf[2 * ks], kf[2 * ks + 1], bh, bl);
+      mma_tf32x3(s + 4 * n, ah[ks], al[ks], bh, bl);
+    }
   }
 }
 
-template <int D, int BM, int BN>
-__global__ void __launch_bounds__(256) flash_fma_f32(AttnParams p) {
-  using Cfg = FmaCfg<D, BM, BN>;
-  constexpr int THREADS = Cfg::THREADS, DP = Cfg::DP, LDQ = Cfg::LDQ,
-                LDV = Cfg::LDV, LDS = Cfg::LDS;
-  constexpr int TM = BM / 16, TN = BN / 16;  // S micro-tile of a thread
-  constexpr int R = BM / 8;                  // O rows of a warp
-  constexpr int KD = DP / 32;                // O head dims of a lane
-  static_assert(BM % 16 == 0 && BN % 16 == 0 && D % 4 == 0, "tile shape");
+// O (16 rows x D) = P V of one tile (o zeroed by the caller). P is S's
+// accumulator layout: k-step j
+// takes keys 8j + 2t and 8j + 2t + 1 as its k = t and k = t + 4, which is
+// the A fragment {s[4j], s[4j+2], s[4j+1], s[4j+3]}; V's rows are read in
+// the same order. P is split once for all D columns.
+template <int D, int BN, int LD>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 2],
+                                        const float (&s)[BN / 2],
+                                        const float* v, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    uint32_t ah[4], al[4];
+    split_a(s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3], ah, al);
+    const float* v0 = v + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      split_b(v0[8 * n], v0[LD + 8 * n], bh, bl);
+      mma_tf32x3(o + 4 * n, ah, al, bh, bl);
+    }
+  }
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + BM * LDQ;
-  float* Vs = Ks + BN * LDQ;
-  float* Ss = Vs + BN * LDV;
-  float* m_s = Ss + BM * LDS;
-  float* l_s = m_s + BM;
-  float* a_s = l_s + BM;
+template <int D, int NW, int BN, int STAGES>
+__global__ void __launch_bounds__(TcCfg<D, NW, BN, STAGES>::THREADS)
+    flash_mma_f32x3(AttnParams p) {
+  using Cfg = TcCfg<D, NW, BN, STAGES>;
+  constexpr int BM = Cfg::BM, LD = Cfg::LD, THREADS = Cfg::THREADS;
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  constexpr int TILE = BN * LD;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ty = tid / 16, tx = tid % 16;
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;            // [BM][LD]
+  float* ring = Qs + BM * LD;  // STAGES x (K [BN][LD], V [BN][LD])
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (p.Sk + BN - 1) / BN;
 
   const float* qp = static_cast<const float*>(p.q) + (long long)b * p.q_sb +
-                    (long long)h * p.q_sh + (long long)q0 * p.q_ss;
+                    (long long)h * p.q_sh;
   const float* kp = static_cast<const float*>(p.k) + (long long)b * p.k_sb +
                     (long long)h * p.k_sh;
   const float* vp = static_cast<const float*>(p.v) + (long long)b * p.v_sb +
                     (long long)h * p.v_sh;
 
-  load_tile_f32<D, DP, LDQ, THREADS>(Qs, qp, p.q_ss, BM, min(BM, p.Sq - q0), tid);
-  if (tid < BM) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-    a_s[tid] = 0.f;
+  // Q, once, with the first tile: rows past Sq are zeros (computed on,
+  // never stored)
+  for (int idx = tid; idx < BM * CPR; idx += THREADS) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = q0 + r < p.Sq;
+    cp_async16(Qs + r * LD + 4 * c,
+               qp + (ok ? (long long)(q0 + r) * p.q_ss : 0) + 4 * c,
+               ok ? 16 : 0);
   }
-
-  float acc[R][KD];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) acc[i][kk] = 0.f;
-
-  for (int kt = 0; kt < p.Sk; kt += BN) {
-    const int valid = min(BN, p.Sk - kt);
-    __syncthreads();
-    load_tile_f32<D, DP, LDQ, THREADS>(Ks, kp + (long long)kt * p.k_ss, p.k_ss, BN,
-                                   valid, tid);
-    load_tile_f32<D, DP, LDV, THREADS>(Vs, vp + (long long)kt * p.v_ss, p.v_ss, BN,
-                                   valid, tid);
-    __syncthreads();
-
-    // (1) S = Q K^T: thread (ty, tx) owns rows ty+16a, keys tx+16b
-    float s[TM][TN];
-#pragma unroll
-    for (int a = 0; a < TM; ++a)
-#pragma unroll
-      for (int bb = 0; bb < TN; ++bb) s[a][bb] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[TM], kv[TN];
-#pragma unroll
-      for (int a = 0; a < TM; ++a) qv[a] = Qs[(ty + 16 * a) * LDQ + d];
-#pragma unroll
-      for (int bb = 0; bb < TN; ++bb) kv[bb] = Ks[(tx + 16 * bb) * LDQ + d];
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int bb = 0; bb < TN; ++bb) s[a][bb] = fmaf(qv[a], kv[bb], s[a][bb]);
-    }
-#pragma unroll
-    for (int a = 0; a < TM; ++a)
-#pragma unroll
-      for (int bb = 0; bb < TN; ++bb)
-        Ss[(ty + 16 * a) * LDS + tx + 16 * bb] = s[a][bb];
-    __syncthreads();
-
-    // (2) online softmax, P written over S
-    softmax_tile<BM, BN, THREADS>(Ss, LDS, m_s, l_s, a_s, valid, p.c, tid);
-    __syncthreads();
-
-    // (3) O = alpha * O + P V: warp owns rows warp*R.., lane owns dims lane+32k
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float al = a_s[warp * R + i];
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) acc[i][kk] *= al;
-    }
-    for (int j = 0; j < BN; ++j) {
-      float vv[KD];
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) vv[kk] = Vs[j * LDV + lane + 32 * kk];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float pij = Ss[(warp * R + i) * LDS + j];
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk)
-          acc[i][kk] = fmaf(pij, vv[kk], acc[i][kk]);
+  // tile j into slot j % STAGES; keys past Sk are zeros. Every call commits
+  // a group (an empty one past the end), so the group count stays uniform.
+  auto issue = [&](int j) {
+    if (j < nt) {
+      float* kd = ring + (j % STAGES) * 2 * TILE;
+      const int k0 = j * BN;
+      for (int idx = tid; idx < BN * CPR; idx += THREADS) {
+        const int r = idx / CPR, c = idx % CPR;
+        const bool ok = k0 + r < p.Sk;
+        const long long row = ok ? k0 + r : 0;
+        cp_async16(kd + r * LD + 4 * c, kp + row * p.k_ss + 4 * c,
+                   ok ? 16 : 0);
+        cp_async16(kd + TILE + r * LD + 4 * c, vp + row * p.v_ss + 4 * c,
+                   ok ? 16 : 0);
       }
     }
-  }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) issue(j);
 
-  float* op = static_cast<float*>(p.o);
+  float o[D / 2], s[BN / 2];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + warp * R + i;
-    if (row < p.Sq) {
-      const float il = 1.f / l_s[warp * R + i];
-      float* dst = op + (((long long)b * p.Sq + row) * p.H + h) * D;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
+  const float* qw = Qs + warp * 16 * LD;
+
+  for (int j = 0; j < nt; ++j) {
+    cp_async_wait<STAGES - 2>();  // tile j (and Q) landed for this thread
+    __syncthreads();  // ... for all; the slot of tile j - 1 is free again
+    issue(j + STAGES - 1);
+    const float* kt = ring + (j % STAGES) * 2 * TILE;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        if (lane + 32 * kk < D) dst[lane + 32 * kk] = acc[i][kk] * il;
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c)
+      qk_chunk<32, BN, LD>(s, qw + 32 * c, kt + 32 * c, g, t);
+    if constexpr (D % 32 != 0)
+      qk_chunk<D % 32, BN, LD>(s, qw + D / 32 * 32, kt + D / 32 * 32, g, t);
+    softmax_regs<BN / 2>(s, p.Sk - j * BN, p.c, m0, m1, l0, l1, a0, a1, lane);
+    // P V of the tile into registers of its own, then O = alpha O + P V in
+    // the CUDA cores: the tensor cores' accumulation does not round to
+    // nearest, and a sum carried through every key tile drifts with Sk
+    // (3e-5 rel L2 at 4096 keys in a development run)
+    float pv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
+    pv_tile<D, BN, LD>(pv, s, kt + TILE, g, t);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i] = fmaf(o[4 * i], a0, pv[4 * i]);
+      o[4 * i + 1] = fmaf(o[4 * i + 1], a0, pv[4 * i + 1]);
+      o[4 * i + 2] = fmaf(o[4 * i + 2], a1, pv[4 * i + 2]);
+      o[4 * i + 3] = fmaf(o[4 * i + 3], a1, pv[4 * i + 3]);
     }
+  }
+  cp_async_wait<0>();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+  float* op = static_cast<float*>(p.o) + h * D + 2 * t;
+  float* dst_lo = op + ((long long)b * p.Sq + row_lo) * p.H * D;
+  float* dst_hi = op + ((long long)b * p.Sq + row_hi) * p.H * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    if (row_lo < p.Sq)
+      *reinterpret_cast<float2*>(dst_lo + 8 * i) =
+          make_float2(o[4 * i] * i0, o[4 * i + 1] * i0);
+    if (row_hi < p.Sq)
+      *reinterpret_cast<float2*>(dst_hi + 8 * i) =
+          make_float2(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
   }
 }
 
@@ -1463,15 +1488,15 @@ extern "C" const char* ed_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = bf16, 1 = fp32. plan: 0 = the FMA body (fp32, D = 40, 64, 80,
-// 160); 1-3 = the wgmma body (bf16, D = 40, 64, 80 or 160): 128 query rows
-// a block and a ring of 128-key (D = 160: 64-key) tiles (1), 64 query rows
-// and a ring of 64-key tiles (2), or 64 query rows and one tile of at most
-// 80 keys (3); 4 = the register-tiled fp32 body at D = 512; 5 = the wgmma
-// body for bf16 at D = 512. Plans 4 and 5 split the keys over `splits`
-// blocks whose partials go to `ws` (splits x B*Sq*H x 514 floats; unused at
-// one split). Returns a cudaError_t, or -1 for a (dtype, head dim, plan)
-// that has no instantiation.
+// dtype: 0 = bf16, 1 = fp32. plan: 0 = the three-pass TF32 body (fp32,
+// D = 40, 64, 80, 160); 1-3 = the wgmma body (bf16, D = 40, 64, 80 or
+// 160): 128 query rows a block and a ring of 128-key (D = 160: 64-key)
+// tiles (1), 64 query rows and a ring of 64-key tiles (2), or 64 query rows
+// and one tile of at most 80 keys (3); 4 = the register-tiled fp32 body at
+// D = 512; 5 = the wgmma body for bf16 at D = 512. Plans 4 and 5 split the
+// keys over `splits` blocks whose partials go to `ws` (splits x B*Sq*H x 514
+// floats; unused at one split). Returns a cudaError_t, or -1 for a (dtype,
+// head dim, plan) that has no instantiation.
 extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int Sq, int Sk, int H, int D,
                                   long long q_sb, long long q_ss, long long q_sh,
@@ -1495,7 +1520,7 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
     if (dtype != 0 || D != 512) return -1;
     return (int)launch_w512(p, splits, static_cast<float*>(ws), st);
   }
-  if (plan != 0) {
+  if (plan >= 1 && plan <= 3) {
     if (dtype != 0) return -1;
 // per head dim: keys a tile and stages of plan 1, stages of plan 2
 #define ED_FLASH_WGMMA(DD, BN1, ST1, ST2)                                     \
@@ -1511,20 +1536,16 @@ extern "C" int ed_flash_attention(const void* q, const void* k, const void* v,
 #undef ED_FLASH_WGMMA
     return -1;
   }
-#define ED_FLASH_F32(DD)                                                      \
-  if (dtype == 1 && D == DD) {                                                \
-    using Cfg = FmaCfg<DD, 64, 64>;                                           \
-    return (int)launch(flash_fma_f32<DD, 64, 64>, Cfg::SMEM, Cfg::THREADS,    \
-                       64, p, st);                                            \
-  }
-  ED_FLASH_F32(40)
-  ED_FLASH_F32(80)
-  ED_FLASH_F32(160)
+  if (dtype != 1 || plan != 0) return -1;
+// per head dim: keys a tile and stages; four warps (64 query rows) a block
+#define ED_FLASH_F32(DD, BN, ST)                                              \
+  if (D == DD)                                                                \
+    return (int)launch(flash_mma_f32x3<DD, 4, BN, ST>,                        \
+                       TcCfg<DD, 4, BN, ST>::SMEM, 128, 64, p, st);
+  ED_FLASH_F32(40, 64, 2)
+  ED_FLASH_F32(64, 64, 2)
+  ED_FLASH_F32(80, 32, 2)
+  ED_FLASH_F32(160, 32, 2)
 #undef ED_FLASH_F32
-  if (dtype == 1 && D == 64) {
-    using Cfg = FmaCfg<64, 64, 64>;
-    return (int)launch(flash_fma_f32<64, 64, 64>, Cfg::SMEM, Cfg::THREADS, 64,
-                       p, st);
-  }
   return -1;
 }

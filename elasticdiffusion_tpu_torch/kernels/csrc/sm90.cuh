@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // cp.async, mbarriers, TMA tensor loads and tensor maps, wgmma descriptors and the
-// asynchronous wgmma products with bf16 operands from shared memory.
+// asynchronous wgmma products with bf16 operands from shared memory, and the
+// fp32 products in three TF32 passes (mma.sync) of the fp32 bodies.
 //
 // Barrier discipline, used by every ring of stages built on these: each
 // stage has a `full` barrier (one arrival by the producer, which also
@@ -306,6 +307,96 @@ __device__ __forceinline__ void wgmma_ss<160>(float* d, uint64_t da,
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
         "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// fp32 products in three TF32 passes (mma.sync, sm_80 and later)
+// ---------------------------------------------------------------------------
+//
+// x = hi + lo + r with hi = tf32(x), lo = tf32(x - hi) (cvt.rna: to nearest,
+// ties away from zero), |r| <= 2^-22 |x| or so. A product a b is then
+// a_hi b_hi + a_hi b_lo + a_lo b_hi + a_lo b_lo: each term is exact in fp32
+// (two 11-bit significands), and the last one, below 2^-21 |a b|, is
+// dropped. The three kept terms go through the tensor cores into one fp32
+// accumulator, small ones first: the fp32 product to within a few units of
+// its last place, where one TF32 pass keeps about 3 decimal digits. The
+// tensor cores' accumulation does not round to nearest, so a long sum
+// drifts toward zero: the callers keep each mma chain short (a key tile, a
+// conv stage) and add the chains in the CUDA cores.
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, fp32) += a (16 x 8) b (8 x 8), TF32 operands. With g = lane / 4
+// and t = lane % 4: a = {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)},
+// b = {(t, g), (t + 4, g)} (k, n), d = {(g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in three passes: a_lo b_hi, a_hi b_lo, then a_hi b_hi
+__device__ __forceinline__ void mma_tf32x3(float* d, const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// The A fragment of one k-step from the fp32 values at its four places,
+// split into hi and lo
+__device__ __forceinline__ void split_a(float x0, float x1, float x2, float x3,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(x0, hi[0], lo[0]);
+  split_tf32(x1, hi[1], lo[1]);
+  split_tf32(x2, hi[2], lo[2]);
+  split_tf32(x3, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void split_b(float x0, float x1, uint32_t (&hi)[2],
+                                        uint32_t (&lo)[2]) {
+  split_tf32(x0, hi[0], lo[0]);
+  split_tf32(x1, hi[1], lo[1]);
+}
+
+// The order of the reduction dim inside a product is free, so operands are
+// read from shared memory in chunks of W = 32, 16 or 8 consecutive values
+// (one row of the chunk per fragment row): lane t of a quad reads the W / 4
+// values at W / 4 * t, and k-step s of the chunk takes values 2s and 2s + 1
+// of them as its k = t and k = t + 4. Both operands read the same way, so
+// the chunk's W products are all taken, each once: one or two vector loads
+// where the fragment layout would take W / 4 scalar ones.
+template <int W>
+__device__ __forceinline__ void ld_chunk(float (&f)[W / 4], const float* p) {
+  if constexpr (W == 32) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  } else if constexpr (W == 16) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  } else {
+    static_assert(W == 8, "a chunk is 32, 16 or 8 values");
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    f[0] = a.x; f[1] = a.y;
+  }
 }
 
 // cuTensorMapEncodeTiled lives in libcuda, not in the runtime; its address

@@ -21,14 +21,19 @@ a register-tiled body of full-precision FMAs (no TF32, as the JAX kernel's
 ``Precision.HIGHEST``): Q resident in shared memory, K and V streamed
 through a ``cp.async`` ring, and the keys split the same way. Split keys
 leave each split's (m, l, O) in a workspace, merged in split order by a
-second kernel. fp32 at the other head dims runs the port's first FMA body.
+second kernel. fp32 at head dims 40 / 64 / 80 / 160 (every UNet attention
+under ``--fp32``) runs both products on the tensor cores in three TF32
+passes (each operand split as hi + lo in registers, ``mma.sync``), which
+keep the fp32 products to a few units of their last place; K and V stream
+through a ``cp.async`` ring.
 
 Bound on this card: operations, ``4*B*H*Sq*Sk*D``, against the bf16 tensor
-core peak (fp32: the CUDA-core peak); for cross-attention (Sk = 77) the q and
-output bytes. At head dim 64 the exponentials of a key tile cost about as
-many cycles as its two products, so the ``wgmma`` body overlaps them: see the
-source for how. ``attention_plan`` picks the body, its tile and the key
-splits as a pure function of the shape.
+core peak (fp32: the CUDA-core peak, whatever the body runs on); for
+cross-attention (Sk = 77) the q and output bytes. At head dim 64 the
+exponentials of a key tile cost about as many cycles as its two products,
+so the ``wgmma`` body overlaps them: see the source for how.
+``attention_plan`` picks the body, its tile and the key splits as a pure
+function of the shape.
 
 Layout ``(B, S, H, D)``. Strided views are taken as they are when the last
 dim is contiguous and the other strides keep 16-byte alignment (which is also
@@ -67,11 +72,15 @@ F512_SMEM = (64 * 516 + 2 * 64 * 132 + 64 * 68 + 64) * 4
 # csrc/flash_attention.cu)
 W512_SMEM = 1024 + 65536 + 4 * 32768 + 32768 + 128
 MAX_KEY_SPLITS = 16
+# the fp32 body at the UNet head dims: (keys a tile, stages of the ring)
+# per head dim, in blocks of 4 warps of 16 query rows (ED_FLASH_F32 in
+# csrc/flash_attention.cu)
+TC_TILES = {40: (64, 2), 64: (64, 2), 80: (32, 2), 160: (32, 2)}
 
 
 class AttentionPlan(NamedTuple):
     """What one launch runs: the body, its tile and what that costs."""
-    body: str        # 'wgmma', 'wgmma.d512', 'fma.tiled' or 'fma'
+    body: str        # 'wgmma', 'wgmma.d512', 'fma.tiled' or 'mma.tf32x3'
     code: int        # the C entry's ``plan`` argument
     bm: int          # query rows of a block
     bn: int          # keys of a tile
@@ -141,10 +150,13 @@ def attention_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int,
                                  row_blocks * splits, splits)
         return AttentionPlan("fma.tiled", 4, 64, 64, 2, 256, F512_SMEM,
                              row_blocks * splits, splits)
-    bm = bn = 64                             # fp32 at D = 40, 64, 80, 160
-    dp = -(-D // 32) * 32
-    smem = (bm * (dp + 1) + bn * (dp + 1) + bn * dp + bm * (bn + 1) + 3 * bm) * 4
-    return AttentionPlan("fma", 0, bm, bn, 1, 256, smem, B * H * -(-Sq // bm))
+    # fp32 at D = 40, 64, 80, 160: Q and the ring's K and V tiles in rows of
+    # D floats padded to 4 mod 32
+    bn, stages = TC_TILES[D]
+    bm, ld = 64, -(-D // 32) * 32 + 4
+    smem = (bm + stages * 2 * bn) * ld * 4
+    return AttentionPlan("mma.tf32x3", 0, bm, bn, stages, 128, smem,
+                         B * H * -(-Sq // bm))
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -55,8 +55,11 @@ def resolve_device(device) -> torch.device:
 
 class _fp32_convs:
     """fp32 convolutions in full fp32 (cuDNN would use TF32 by default)
-    around the fp32 VAE paths, which are fp32 because they are sensitive to
-    precision."""
+    around every model forward: the fp32 VAE paths, which are fp32 because
+    they are sensitive to precision, and the UNet, ControlNet and decode
+    of the ``--fp32`` configuration, held to fp32 by the CPU parity tests.
+    The flag touches only fp32 convolutions, so a bf16 forward runs as
+    before."""
 
     def __enter__(self):
         self.prev = torch.backends.cudnn.allow_tf32
@@ -98,11 +101,12 @@ class ModelBundle:
     def apply_unet(self, latent_nchw, t, context, added_text_embeds=None,
                    added_time_ids=None, down_block_residuals=None,
                    mid_block_residual=None):
-        return self.unet(latent_nchw, t, context,
-                         added_text_embeds=added_text_embeds,
-                         added_time_ids=added_time_ids,
-                         down_block_residuals=down_block_residuals,
-                         mid_block_residual=mid_block_residual)
+        with _fp32_convs():
+            return self.unet(latent_nchw, t, context,
+                             added_text_embeds=added_text_embeds,
+                             added_time_ids=added_time_ids,
+                             down_block_residuals=down_block_residuals,
+                             mid_block_residual=mid_block_residual)
 
     @torch.no_grad()
     def apply_controlnet(self, latent_nchw, t, context, condition_nchw,
@@ -112,10 +116,11 @@ class ModelBundle:
         if self.controlnet is None:
             raise ValueError("the bundle has no ControlNet: load it with "
                              "controlnet_model=...")
-        return self.controlnet(latent_nchw, t, context, condition_nchw,
-                               conditioning_scale=conditioning_scale,
-                               added_text_embeds=added_text_embeds,
-                               added_time_ids=added_time_ids)
+        with _fp32_convs():
+            return self.controlnet(latent_nchw, t, context, condition_nchw,
+                                   conditioning_scale=conditioning_scale,
+                                   added_text_embeds=added_text_embeds,
+                                   added_time_ids=added_time_ids)
 
     @property
     def fp32_decode(self) -> bool:
@@ -127,10 +132,10 @@ class ModelBundle:
     def vae_decode(self, latents_nchw):
         """Latents (already divided by scaling_factor) -> RGB in [-1,1],
         in fp32 where ``fp32_decode`` says so, else in the compute dtype."""
-        if self.fp32_decode:
-            with _fp32_convs():
+        with _fp32_convs():
+            if self.fp32_decode:
                 return self.vae_fp32.decode(latents_nchw.float())
-        return self.vae.decode(latents_nchw)
+            return self.vae.decode(latents_nchw)
 
     @torch.no_grad()
     def vae_encode_sample(self, images_nchw, noise):

@@ -372,15 +372,15 @@ def halo_decode(bundle, latents_nchw: torch.Tensor, mesh=None,
     approximate sequential bands (with `halo` latent rows of context a
     side); ``streamed=True`` the exact streamed stage b. The decoder runs in
     fp32 where the bundle's ``fp32_decode`` says so, as
-    ``ModelBundle.vae_decode`` does, with TF32 off."""
+    ``ModelBundle.vae_decode`` does, and in every dtype with TF32 off."""
     from ..models.registry import _fp32_convs
-    if bundle.fp32_decode:
-        with _fp32_convs():
+    with _fp32_convs():
+        if bundle.fp32_decode:
             return _decode(bundle.vae_fp32, latents_nchw.float(),
                            bundle.vae_scale_factor, halo, num_bands, streamed,
                            mesh)
-    return _decode(bundle.vae, latents_nchw, bundle.vae_scale_factor, halo,
-                   num_bands, streamed, mesh)
+        return _decode(bundle.vae, latents_nchw, bundle.vae_scale_factor,
+                       halo, num_bands, streamed, mesh)
 
 
 def _decode(vae, lat, vsf, halo, num_bands, streamed, mesh):

@@ -34,7 +34,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 def _body(dtype, D):
     if dtype == F32:
-        return "fma.tiled" if D == 512 else "fma"
+        return "fma.tiled" if D == 512 else "mma.tf32x3"
     return "wgmma" if D in WGMMA_HEAD_DIMS else "wgmma.d512"
 
 
@@ -249,18 +249,22 @@ def test_bf16_d512_plan_at_path_shapes(S, splits):
 
 def test_bf16_d512_plan_names_an_instantiation_of_the_source():
     """Plan 5 is the wgmma body at head dim 512 in the C entry, with the
-    shared memory and threads of its configuration; no plan is mma.sync."""
+    shared memory and threads of its configuration; no bf16 body is
+    mma.sync (the fp32 body at the UNet head dims is: TF32 in three
+    passes, which wgmma takes only from K-major shared memory)."""
     src = (build.CSRC / "flash_attention.cu").read_text()
     assert re.search(r"if \(plan == 5\) \{[^}]*launch_w512\(", src)
     cfg = re.search(r"struct W512Cfg \{(.*?)\n\};", src, re.S).group(1)
     assert "D = 512, BM = 64, BN = 32, THREADS = 384, SLOTS = 2" in cfg
     assert "flash_wgmma_bf16_d512" in src
-    assert "mma.sync" not in src and "flash_mma_bf16" not in src
+    assert "flash_mma_bf16" not in src
+    assert all("tf32" in line.lower() or "TF32" in line
+               for line in src.splitlines() if "mma.sync" in line)
     plans = {attention_plan(dt, B, S, S, H, D).body
              for dt in (BF16, F32) for D in HEAD_DIMS
              for B, S, H in ((1, 6144, 1), (8, 1024, 8), (2, 77, 2))}
     assert "mma.sync" not in plans
-    assert plans == {"wgmma", "wgmma.d512", "fma", "fma.tiled"}
+    assert plans == {"wgmma", "wgmma.d512", "mma.tf32x3", "fma.tiled"}
 
 
 @pytest.fixture(scope="module")

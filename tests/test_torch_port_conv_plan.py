@@ -87,7 +87,7 @@ def test_ragged_and_small_c_shapes_get_a_plan(B, H, W, C, O):
 
 def test_fp32_keeps_the_fma_body_and_unbuilt_shapes_raise():
     plan = conv_plan(F32, 2, 64, 64, 320, 320)
-    assert (plan.body, plan.code, plan.splits) == ("fma", 0, 1)
+    assert (plan.body, plan.code, plan.splits) == ("mma.tf32x3", 0, 1)
     with pytest.raises(NotImplementedError):
         conv_plan(torch.float16, 1, 8, 8, 64, 64)
     with pytest.raises(ValueError):

@@ -34,7 +34,7 @@ from elasticdiffusion_tpu_torch.models.layers import GroupNorm32
 
 CU = (Path(tgn.__file__).parent / "csrc" / "groupnorm.cu").read_text()
 CASES = chip_smoke.groupnorm_cases()
-UNET_TAGS = ("sdxl", "sd15", "sd21")
+UNET_TAGS = ("sdxl", "sd15", "sd21", "sd_fp32")
 
 
 def _case_id(case):
@@ -160,8 +160,10 @@ def test_plan_mirrors_the_source():
 
 def test_cases_carry_the_models_weight_dtype_and_eps():
     """Each case has the eps and the weight dtype of the modules that launch
-    its shape: UNet norms in the bf16 parameter dtype, ResNet norms (SiLU)
-    at 1e-5 and Transformer2D norms at 1e-6; VAE norms fp32 at 1e-6."""
+    its shape: UNet norms in the bf16 parameter dtype (fp32 on the --fp32
+    paths, whose activations are fp32 too), ResNet norms (SiLU) at 1e-5 and
+    Transformer2D norms at 1e-6; VAE norms fp32 at 1e-6; LayerNorms in the
+    parameter dtype at 1e-5."""
     from elasticdiffusion_tpu_torch.models.unet import UNet2DCondition
     from elasticdiffusion_tpu_torch.models.vae import AutoencoderKL
     with torch.device("meta"):
@@ -173,15 +175,18 @@ def test_cases_carry_the_models_weight_dtype_and_eps():
     assert unet_norms == {(True, 1e-5), (False, 1e-6)}
     assert vae_norms == {(True, 1e-6), (False, 1e-6)}
     param_dtype = tcfg.RuntimeConfig().param_dtype
+    fp32_params = lambda dtype: torch.float32 if dtype == torch.float32 \
+        else param_dtype
     for tag, dtype, w_dtype, eps, B, H, W, C, silu, _ in CASES:
         if tag in UNET_TAGS:
-            assert (silu, eps) in unet_norms and w_dtype == param_dtype
+            assert (silu, eps) in unet_norms and w_dtype == fp32_params(dtype)
+            assert (tag == "sd_fp32") == (dtype == torch.float32)
         else:
             assert (silu, eps) in vae_norms and w_dtype == torch.float32
     assert {(d, w) for t, d, w, *_ in CASES if t == "vae_decode"} == {
         (torch.bfloat16, torch.float32), (torch.float32, torch.float32)}
     for tag, dtype, w_dtype, eps, N, C in chip_smoke.layernorm_cases():
-        assert (w_dtype, eps) == (param_dtype, 1e-5)
+        assert (w_dtype, eps) == (fp32_params(dtype), 1e-5)
 
 
 def _inputs(shape, x_dtype, w_dtype, seed):
