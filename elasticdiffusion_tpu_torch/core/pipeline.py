@@ -46,6 +46,7 @@ from ..parallel.sharding import (collective_inventory, is_first_rank,
 from ..sched.ddim import DDIMScheduler
 from ..sched.weight_schedulers import (CosineScheduler, make_rrg_scheduler,
                                        rrg_weight_table)
+from ..utils import trace
 from ..utils.image import make_grid, to_pil
 from ..utils.timeit import timelog
 from . import background, signals
@@ -227,11 +228,28 @@ class ElasticDiffusion:
         of stage b over the mesh's 'views' axis, else monolithic or
         streamed stage b by its predictive choice; equal to
         ``decode_latents`` up to the order of sums."""
+        return self._halo_decode(latents)[0]
+
+    def _halo_decode(self, latents) -> Tuple[torch.Tensor, str]:
+        """``halo_decode`` and the branch it took ('mesh', 'monolithic',
+        'streamed' or 'bands')."""
         from ..parallel.halo_decode import halo_decode
-        img = halo_decode(self.bundle, latents.float()
-                          / self.bundle.config.vae.scaling_factor,
-                          mesh=self.mesh)
-        return (img.float() / 2 + 0.5).clamp(0.0, 1.0)
+        img, branch = halo_decode(self.bundle, latents.float()
+                                  / self.bundle.config.vae.scaling_factor,
+                                  mesh=self.mesh, return_branch=True)
+        return (img.float() / 2 + 0.5).clamp(0.0, 1.0), branch
+
+    def _final_decode(self, latents, tiled_decoder: bool
+                      ) -> Tuple[torch.Tensor, str]:
+        """The final decode of one image and its route: 'plain'
+        (``decode_latents``), 'tiled' (``tiled_decode``) or 'halo:' and
+        the branch ``halo_decode`` took."""
+        if not tiled_decoder:
+            return self.decode_latents(latents), "plain"
+        if not self.use_halo_decode:
+            return self.tiled_decode(latents), "tiled"
+        img, branch = self._halo_decode(latents)
+        return img, "halo:" + branch
 
     def tiled_decode(self, latents) -> torch.Tensor:
         """The reference's overlap-averaged tiled decode: the latent is
@@ -299,15 +317,17 @@ class ElasticDiffusion:
     # ------------------------------------------------------------------
 
     def _estimate(self, ctx: _StepContext, lat, t, bg_down, bg_view,
-                  resampling_steps: int, picks):
-        """Global direction + local unconditional score at one latent."""
-        res = signals.approximate_latent_direction(
-            self.bundle, lat, ctx.generator, t, ctx.text_cfg,
-            ctx.resample_plan, ctx.down_pad, bg_down, resampling_steps,
-            ctx.drop_p, add_text_embeds_cfg=ctx.add_text_cfg,
-            add_time_ids=ctx.add_time_ids, scripted_picks=picks,
-            controlnet_cond=ctx.controlnet_cond,
-            controlnet_scale=ctx.controlnet_scale, mesh=self.mesh)
+                  resampling_steps: int, picks, which: str = "main"):
+        """Global direction + local unconditional score at one latent;
+        `which` names the pass in the trace ('main' or 'repaint')."""
+        with trace.span("direction", rs=resampling_steps, **{"pass": which}):
+            res = signals.approximate_latent_direction(
+                self.bundle, lat, ctx.generator, t, ctx.text_cfg,
+                ctx.resample_plan, ctx.down_pad, bg_down, resampling_steps,
+                ctx.drop_p, add_text_embeds_cfg=ctx.add_text_cfg,
+                add_time_ids=ctx.add_time_ids, scripted_picks=picks,
+                controlnet_cond=ctx.controlnet_cond,
+                controlnet_scale=ctx.controlnet_scale, mesh=self.mesh)
         local = signals.compute_local_uncond_signal(
             self.bundle, lat, t, ctx.uncond_text, ctx.view_plan, ctx.view_pad,
             bg_view, uncond_pooled=ctx.uncond_pooled,
@@ -335,7 +355,7 @@ class ElasticDiffusion:
                                      inp["undo_sb"],
                                      scripted=inp.get("repaint_noise"))
             res2, local2 = self._estimate(ctx, lat2, t, bg_down, bg_view, 0,
-                                          inp.get("picks_repaint"))
+                                          inp.get("picks_repaint"), "repaint")
             rrg_cfg = ctx.guidance_scale / 3
             pred2 = local2 + rrg_cfg * res2.direction
             prev, x0 = DDIMScheduler.step_from_coeffs(pred2, lat2.float(),
@@ -485,120 +505,142 @@ class ElasticDiffusion:
         generator and goes on at the step after the saved one, so that it
         ends with the uninterrupted run's latent.
 
-        With a mesh, ``last_metrics["collectives"]`` holds this rank's
-        ``collective_inventory`` of the call."""
-        t_fn0 = time.time()
-        if self.mesh is not None:
-            reset_collective_inventory()
-        b = self.bundle
-        dev = self.device
-        on_cuda = dev.type == "cuda"
-        if isinstance(prompts, str):
-            prompts = [prompts]
-        if isinstance(negative_prompts, str):
-            negative_prompts = [negative_prompts] * len(prompts)
-        B = len(prompts)
-        ctx = self._context(prompts, negative_prompts, height, width,
-                            guidance_scale, resampling_steps, new_p,
-                            condition_image, controlnet_conditioning_scale)
-        vsf = self.vae_scale_factor
-        lat_h, lat_w = height // vsf, width // vsf
+        ``last_metrics`` after the call: ``steps``, ``views``,
+        ``unet_view_forwards`` (the UNet rows of the step loop, counted at
+        ``ModelBundle.apply_unet``; with a mesh, this rank's rows, padding
+        included), ``preamble_seconds``, ``denoise_seconds`` and
+        ``decode_seconds`` (host clock, each phase ended by a
+        synchronisation on the GPU) and ``decode_route`` (``plain``,
+        ``tiled`` or ``halo:`` and the branch ``halo_decode`` took). With a
+        mesh, ``last_metrics["collectives"]`` holds this rank's
+        ``collective_inventory`` of the call. With a tracer set
+        (``utils/trace.py``), the call records its spans."""
+        with trace.span("image") as image:
+            t_fn0 = time.time_ns()
+            preamble = trace.begin("preamble", t_fn0, peak=self.device)
+            if self.mesh is not None:
+                reset_collective_inventory()
+            b = self.bundle
+            dev = self.device
+            on_cuda = dev.type == "cuda"
+            if isinstance(prompts, str):
+                prompts = [prompts]
+            if isinstance(negative_prompts, str):
+                negative_prompts = [negative_prompts] * len(prompts)
+            B = len(prompts)
+            with trace.span("context"):
+                ctx = self._context(prompts, negative_prompts, height, width,
+                                    guidance_scale, resampling_steps, new_p,
+                                    condition_image,
+                                    controlnet_conditioning_scale)
+            vsf = self.vae_scale_factor
+            lat_h, lat_w = height // vsf, width // vsf
 
-        # initial latent
-        if latents is None:
-            gen_init = torch.Generator(device=dev).manual_seed(
-                _fold(self._seed, 1))
-            lat = torch.randn((B, b.in_channels, lat_h, lat_w),
-                              generator=gen_init, device=dev)
-        else:
-            lat = torch.as_tensor(latents, dtype=torch.float32, device=dev)
+            # initial latent
+            if latents is None:
+                gen_init = torch.Generator(device=dev).manual_seed(
+                    _fold(self._seed, 1))
+                lat = torch.randn((B, b.in_channels, lat_h, lat_w),
+                                  generator=gen_init, device=dev)
+            else:
+                lat = torch.as_tensor(latents, dtype=torch.float32, device=dev)
 
-        do_repaint = repaint_sampling and resampling_steps > 0
-        sched = self._schedule(ctx, num_inference_steps, rrg_stop_t,
-                               rrg_init_weight, rrg_scherduler_cls,
-                               cosine_scale, do_repaint)
-        T = num_inference_steps
+            do_repaint = repaint_sampling and resampling_steps > 0
+            with trace.span("schedule"):
+                sched = self._schedule(ctx, num_inference_steps, rrg_stop_t,
+                                       rrg_init_weight, rrg_scherduler_cls,
+                                       cosine_scale, do_repaint)
+            T = num_inference_steps
+            V = ctx.view_plan.num_views
+            image.set(height=height, width=width, steps=T,
+                      rs=resampling_steps, views=V, B=B)
 
-        # latent checkpoint/resume: the latent, the step and the generator
-        start_step = 0
-        if resume_from is not None:
-            ck = np.load(resume_from)
-            if tuple(ck["latent"].shape) != tuple(lat.shape):
-                raise ValueError(f"checkpoint latent {ck['latent'].shape} != "
-                                 f"{tuple(lat.shape)}")
-            lat = torch.as_tensor(ck["latent"], device=dev)
-            ctx.generator.set_state(torch.from_numpy(ck["generator"]))
-            start_step = int(ck["step"]) + 1
+            # latent checkpoint/resume: the latent, the step and the generator
+            start_step = 0
+            if resume_from is not None:
+                ck = np.load(resume_from)
+                if tuple(ck["latent"].shape) != tuple(lat.shape):
+                    raise ValueError(f"checkpoint latent {ck['latent'].shape} "
+                                     f"!= {tuple(lat.shape)}")
+                lat = torch.as_tensor(ck["latent"], device=dev)
+                ctx.generator.set_state(torch.from_numpy(ck["generator"]))
+                start_step = int(ck["step"]) + 1
 
-        # per-step cost model
-        V = ctx.view_plan.num_views
-        fwd_per_step = 2 * (resampling_steps + 1) + V
-        fwd_repaint = 2 + V
+            steps_iter = range(start_step, T)
+            if progress is not None:
+                steps_iter = progress(steps_iter)
+            init_downsampled_latent = None
+            inter_x0, inter_rrg_x0 = [], []
+            self.last_step_latents = []
+            if on_cuda:
+                torch.cuda.synchronize(dev)  # the preamble is not the loop
+            t_start = time.time_ns()
+            preamble.end(t_start)
+            denoise = trace.begin("denoise", t_start, peak=dev)
+            rows0 = b.unet_rows
+            for i in steps_iter:
+                inp, use_repaint = sched.inputs(i)
+                if scripted_noise is not None:
+                    for k_, v_ in scripted_noise.items():
+                        arr = v_[i] if isinstance(v_, (list, tuple)) else v_
+                        inp[k_] = torch.as_tensor(arr, device=dev)
+                with trace.span("step", i=i, repaint=use_repaint):
+                    lat, aux = self._denoise_step(ctx, lat, inp, use_repaint)
+                self.last_step_latents.append(lat)
+                if init_downsampled_latent is None:
+                    init_downsampled_latent = aux["init_downsampled_latent"]
+                if self.verbose and i % self.log_freq == 0:
+                    inter_x0.append(aux["x0"])
+                    if sched.rrg_w[i] > 10:
+                        inter_rrg_x0.append(aux["rrg_x0"])
+                if checkpoint_path and checkpoint_every \
+                        and (i + 1) % checkpoint_every == 0 \
+                        and is_first_rank():
+                    np.savez(checkpoint_path, latent=lat.cpu().numpy(), step=i,
+                             generator=ctx.generator.get_state().numpy())
+            rows = b.unet_rows - rows0
+            if on_cuda:
+                torch.cuda.synchronize(dev)
+            t_end = time.time_ns()
+            denoise.end(t_end)
+            self.last_metrics = {
+                "steps": T, "views": V, "unet_view_forwards": rows,
+                "denoise_seconds": (t_end - t_start) / 1e9,
+                "preamble_seconds": (t_start - t_fn0) / 1e9,
+            }
 
-        steps_iter = range(start_step, T)
-        if progress is not None:
-            steps_iter = progress(steps_iter)
-        total_fwd = 0
-        init_downsampled_latent = None
-        inter_x0, inter_rrg_x0 = [], []
-        self.last_step_latents = []
-        if on_cuda:
-            torch.cuda.synchronize(dev)  # the preamble is not the denoise loop
-        t_start = time.time()
-        for i in steps_iter:
-            inp, use_repaint = sched.inputs(i)
-            if scripted_noise is not None:
-                for k_, v_ in scripted_noise.items():
-                    arr = v_[i] if isinstance(v_, (list, tuple)) else v_
-                    inp[k_] = torch.as_tensor(arr, device=dev)
-            lat, aux = self._denoise_step(ctx, lat, inp, use_repaint)
-            self.last_step_latents.append(lat)
-            total_fwd += fwd_per_step + (fwd_repaint if use_repaint else 0)
-            if init_downsampled_latent is None:
-                init_downsampled_latent = aux["init_downsampled_latent"]
-            if self.verbose and i % self.log_freq == 0:
-                inter_x0.append(aux["x0"])
-                if sched.rrg_w[i] > 10:
-                    inter_rrg_x0.append(aux["rrg_x0"])
-            if checkpoint_path and checkpoint_every \
-                    and (i + 1) % checkpoint_every == 0 \
-                    and is_first_rank():
-                np.savez(checkpoint_path, latent=lat.cpu().numpy(), step=i,
-                         generator=ctx.generator.get_state().numpy())
-        if on_cuda:
-            torch.cuda.synchronize(dev)
-        elapsed = time.time() - t_start
-        self.last_metrics = {
-            "steps": T, "views": V, "unet_view_forwards": total_fwd,
-            "denoise_seconds": elapsed,
-            "unet_view_forwards_per_sec": total_fwd / max(elapsed, 1e-9),
-            "preamble_seconds": t_start - t_fn0,
-        }
+            image_log: Dict[str, Any] = {}
+            if self.verbose:
+                if tiled_decoder:
+                    decode = self.halo_decode if self.use_halo_decode \
+                        else self.tiled_decode
+                else:
+                    decode = self.decode_latents
+                image_log = self._image_log(
+                    init_downsampled_latent, ctx, T, sched, inter_x0,
+                    inter_rrg_x0, decode)
 
-        if tiled_decoder:
-            decode = self.halo_decode if self.use_halo_decode \
-                else self.tiled_decode
-        else:
-            decode = self.decode_latents
-        image_log: Dict[str, Any] = {}
-        if self.verbose:
-            image_log = self._image_log(
-                init_downsampled_latent, ctx, T, sched, inter_x0,
-                inter_rrg_x0, decode)
-
-        t_dec0 = time.time()
-        imgs = torch.cat([decode(lat[i:i + 1]) for i in range(B)])
-        if on_cuda:
-            torch.cuda.synchronize(dev)
-        self.last_metrics["decode_seconds"] = time.time() - t_dec0
-        if self.mesh is not None:
-            self.last_metrics["collectives"] = collective_inventory()
-        if return_arrays:
-            return imgs.cpu().numpy(), {"latent": lat.cpu().numpy(), **image_log}
-        if grid:
-            arr = make_grid(imgs.cpu().numpy(), nrow=B)[None]
-            return to_pil(arr), image_log
-        return to_pil(imgs), image_log
+            t_dec0 = time.time_ns()
+            decoding = trace.begin("decode", t_dec0, peak=dev)
+            decoded = [self._final_decode(lat[i:i + 1], tiled_decoder)
+                       for i in range(B)]
+            imgs = torch.cat([img for img, _ in decoded])
+            route = decoded[-1][1]
+            if on_cuda:
+                torch.cuda.synchronize(dev)
+            t_dec1 = time.time_ns()
+            decoding.end(t_dec1, route=route)
+            self.last_metrics["decode_seconds"] = (t_dec1 - t_dec0) / 1e9
+            self.last_metrics["decode_route"] = route
+            if self.mesh is not None:
+                self.last_metrics["collectives"] = collective_inventory()
+            if return_arrays:
+                return imgs.cpu().numpy(), {"latent": lat.cpu().numpy(),
+                                            **image_log}
+            if grid:
+                arr = make_grid(imgs.cpu().numpy(), nrow=B)[None]
+                return to_pil(arr), image_log
+            return to_pil(imgs), image_log
 
     def _image_log(self, init_down, ctx: _StepContext, steps: int,
                    sched: _Schedule, inter_x0, inter_rrg_x0,

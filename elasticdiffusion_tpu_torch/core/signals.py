@@ -28,6 +28,8 @@ Structure, as in the JAX package:
     split over the 'views' axis by ``parallel/sharding.py``'s
     ``sharded_call``; each view chunk is split on its own. The generators
     are never split: every rank draws the same numbers
+  - with a tracer set (``utils/trace.py``), ``unet_step``, the pick chain,
+    the local signal and ``undo_step`` record their spans
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..ops.resize import nearest_resize
 from ..ops.views import ViewPlan, gather_views, scatter_first_writer
 from ..parallel.sharding import sharded_call
 from ..sched.ddim import DDIMScheduler
+from ..utils import trace
 from .background import PadSpec, crop_from_padding, pad_with_background
 
 
@@ -64,20 +67,24 @@ def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
               add_text_embeds=None, add_time_ids=None, controlnet_cond=None,
               controlnet_scale: float = 1.0):
     """background pad -> (ControlNet ->) UNet -> crop. x: (B', C, h, w);
-    controlnet_cond: (B', 3, H', W') at the padded input's pixels."""
-    x_in = pad_with_background(x, pad_spec, step_bgs)
-    kwargs = {}
-    if add_text_embeds is not None:
-        kwargs = {"added_text_embeds": add_text_embeds,
-                  "added_time_ids": add_time_ids}
-    if controlnet_cond is not None:
-        down, mid = bundle.apply_controlnet(
-            x_in, t, context, controlnet_cond,
-            conditioning_scale=controlnet_scale, **kwargs)
-        kwargs["down_block_residuals"] = down
-        kwargs["mid_block_residual"] = mid
-    eps = bundle.apply_unet(x_in, t, context, **kwargs)
-    return crop_from_padding(eps, pad_spec)
+    controlnet_cond: (B', 3, H', W') at the padded input's pixels. The
+    trace's ``unet`` span."""
+    with trace.span("unet", rows=x.shape[0],
+                    controlnet=controlnet_cond is not None) as sp:
+        x_in = pad_with_background(x, pad_spec, step_bgs)
+        sp.set(h=x_in.shape[2], w=x_in.shape[3])
+        kwargs = {}
+        if add_text_embeds is not None:
+            kwargs = {"added_text_embeds": add_text_embeds,
+                      "added_time_ids": add_time_ids}
+        if controlnet_cond is not None:
+            down, mid = bundle.apply_controlnet(
+                x_in, t, context, controlnet_cond,
+                conditioning_scale=controlnet_scale, **kwargs)
+            kwargs["down_block_residuals"] = down
+            kwargs["mid_block_residual"] = mid
+        eps = bundle.apply_unet(x_in, t, context, **kwargs)
+        return crop_from_padding(eps, pad_spec)
 
 
 def _unet_rows(bundle, t, pad_spec: PadSpec, step_bgs,
@@ -170,8 +177,9 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
     n_sub = resampling_steps + 1
     latent32 = latent.float()
 
-    picks = resolve_resample_picks(generator, n_sub, N, drop_p, scripted_picks,
-                                   device=latent.device)
+    with trace.span("picks", n_sub=n_sub):
+        picks = resolve_resample_picks(generator, n_sub, N, drop_p,
+                                       scripted_picks, device=latent.device)
     pairs = [apply_resample(latent32, plan, picks[s]) for s in range(n_sub)]
     downs = torch.stack([p[0] for p in pairs])       # (n_sub, B, C, dh, dw)
     masks = [p[1] for p in pairs]                    # n_sub x (H, W)
@@ -257,26 +265,28 @@ def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
     """
     B = latent.shape[0]
     V = plan.num_views
-    views = gather_views(latent.to(bundle.runtime.compute_dtype), plan)
-    vb = views.reshape(V * B, *views.shape[2:])
-    ctx = uncond_embeds.repeat(V, 1, 1)
-    pooled = None if uncond_pooled is None else uncond_pooled.repeat(V, 1)
-    tid = None if add_time_ids is None else \
-        add_time_ids.expand(V * B, *add_time_ids.shape[1:])
-    cn = None if controlnet_cond is None else view_conditions(
-        controlnet_cond, plan, B, bundle.vae_scale_factor)
-
-    run = _unet_rows(bundle, t, pad_spec, step_bgs, controlnet_scale)
     chunk = view_batch_size * B if 0 < view_batch_size < V else V * B
-    preds = []
-    for lo in range(0, V * B, chunk):
-        rows = slice(lo, min(lo + chunk, V * B))
-        preds.append(sharded_call(
-            run, mesh, vb[rows], ctx[rows],
-            *(None if a is None else a[rows] for a in (pooled, tid, cn))))
-    preds = torch.cat(preds) if len(preds) > 1 else preds[0]
-    preds = preds.reshape(V, B, *preds.shape[1:]).float()
-    return scatter_first_writer(preds, plan)
+    starts = range(0, V * B, chunk)
+    with trace.span("local", views=V, chunks=len(starts)):
+        views = gather_views(latent.to(bundle.runtime.compute_dtype), plan)
+        vb = views.reshape(V * B, *views.shape[2:])
+        ctx = uncond_embeds.repeat(V, 1, 1)
+        pooled = None if uncond_pooled is None else uncond_pooled.repeat(V, 1)
+        tid = None if add_time_ids is None else \
+            add_time_ids.expand(V * B, *add_time_ids.shape[1:])
+        cn = None if controlnet_cond is None else view_conditions(
+            controlnet_cond, plan, B, bundle.vae_scale_factor)
+
+        run = _unet_rows(bundle, t, pad_spec, step_bgs, controlnet_scale)
+        preds = []
+        for lo in starts:
+            rows = slice(lo, min(lo + chunk, V * B))
+            preds.append(sharded_call(
+                run, mesh, vb[rows], ctx[rows],
+                *(None if a is None else a[rows] for a in (pooled, tid, cn))))
+        preds = torch.cat(preds) if len(preds) > 1 else preds[0]
+        preds = preds.reshape(V, B, *preds.shape[1:]).float()
+        return scatter_first_writer(preds, plan)
 
 
 def _ddim_from_coeffs(model_output, sample, coeffs):
@@ -309,5 +319,6 @@ def undo_step(sample, generator, sqrt_1m_betas, sqrt_betas, scripted=None):
         torch.randn(sample.shape, generator=generator, dtype=sample.dtype,
                     device=sample.device)
         for _ in range(len(sqrt_1m_betas)))
-    return DDIMScheduler.undo_step_from_coeffs(sample, noises, sqrt_1m_betas,
-                                               sqrt_betas)
+    with trace.span("undo", micro_steps=len(sqrt_1m_betas)):
+        return DDIMScheduler.undo_step_from_coeffs(sample, noises,
+                                                   sqrt_1m_betas, sqrt_betas)

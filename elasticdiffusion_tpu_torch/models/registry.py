@@ -80,6 +80,8 @@ class ModelBundle:
     text_models: Tuple[CLIPTextModel, ...]
     tokenizers: Tuple[CLIPTokenizer, ...]
     controlnet: Optional[ControlNet] = None
+    # UNet rows run by ``apply_unet`` since the bundle was made
+    unet_rows: int = 0
 
     def _denoisers(self):
         return [m for m in (self.unet, self.controlnet) if m is not None]
@@ -101,6 +103,7 @@ class ModelBundle:
     def apply_unet(self, latent_nchw, t, context, added_text_embeds=None,
                    added_time_ids=None, down_block_residuals=None,
                    mid_block_residual=None):
+        self.unet_rows += latent_nchw.shape[0]
         with _fp32_convs():
             return self.unet(latent_nchw, t, context,
                              added_text_embeds=added_text_embeds,

@@ -363,7 +363,7 @@ def choose_branch(dtype: torch.dtype, B: int, H: int, W: int, vsf: int) -> str:
 @torch.no_grad()
 def halo_decode(bundle, latents_nchw: torch.Tensor, mesh=None,
                 halo: int = DEFAULT_HALO, num_bands: Optional[int] = None,
-                streamed: Optional[bool] = None) -> torch.Tensor:
+                streamed: Optional[bool] = None, return_branch: bool = False):
     """(B, 4, H, W) latents (already divided by scaling_factor) -> (B, 3, 8H,
     8W) image in [-1, 1], on every rank of `mesh`. The exact mesh branch
     when the mesh's 'views' axis n > 1 divides H; else monolithic or
@@ -372,28 +372,34 @@ def halo_decode(bundle, latents_nchw: torch.Tensor, mesh=None,
     approximate sequential bands (with `halo` latent rows of context a
     side); ``streamed=True`` the exact streamed stage b. The decoder runs in
     fp32 where the bundle's ``fp32_decode`` says so, as
-    ``ModelBundle.vae_decode`` does, and in every dtype with TF32 off."""
+    ``ModelBundle.vae_decode`` does, and in every dtype with TF32 off.
+    `return_branch`: return (image, the branch taken: 'mesh',
+    'monolithic', 'streamed' or 'bands')."""
     from ..models.registry import _fp32_convs
     with _fp32_convs():
         if bundle.fp32_decode:
-            return _decode(bundle.vae_fp32, latents_nchw.float(),
-                           bundle.vae_scale_factor, halo, num_bands, streamed,
-                           mesh)
-        return _decode(bundle.vae, latents_nchw, bundle.vae_scale_factor,
-                       halo, num_bands, streamed, mesh)
+            img, branch = _decode(bundle.vae_fp32, latents_nchw.float(),
+                                  bundle.vae_scale_factor, halo, num_bands,
+                                  streamed, mesh)
+        else:
+            img, branch = _decode(bundle.vae, latents_nchw,
+                                  bundle.vae_scale_factor, halo, num_bands,
+                                  streamed, mesh)
+    return (img, branch) if return_branch else img
 
 
 def _decode(vae, lat, vsf, halo, num_bands, streamed, mesh):
+    """(image, branch) of ``halo_decode``."""
     B, _, H, W = lat.shape
     hidden = vae.decode_stage_a(lat)
     if views_size(mesh) > 1 and H % views_size(mesh) == 0:
-        return _stage_b_mesh(vae.decoder, hidden, mesh)
+        return _stage_b_mesh(vae.decoder, hidden, mesh), "mesh"
     if streamed or (streamed is None and num_bands is None and choose_branch(
             vae.dtype, B, H, W, vsf) == "streamed"):
-        return _stage_b_streamed(vae.decoder, hidden)
+        return _stage_b_streamed(vae.decoder, hidden), "streamed"
     n, win = _bands(H, num_bands or 1, halo)
     if n == 1:
-        return vae.decode_stage_b(hidden)
+        return vae.decode_stage_b(hidden), "monolithic"
     hs = H // n
     bands = []
     for i in range(n):
@@ -401,4 +407,4 @@ def _decode(vae, lat, vsf, halo, num_bands, streamed, mesh):
         img = vae.decode_stage_b(hidden[:, :, start:start + win])
         keep = (i * hs - start) * vsf
         bands.append(img[:, :, keep:keep + hs * vsf])
-    return torch.cat(bands, dim=2)
+    return torch.cat(bands, dim=2), "bands"

@@ -1,2 +1,3 @@
 """Utilities: the CLIP tokenizer, image assembly helpers, wall-clock
-timing (``timeit``) and the analytic cost model (``flops``)."""
+timing (``timeit``), the spans of ``generate_image`` (``trace``) and the
+analytic cost model (``flops``)."""

@@ -1,0 +1,252 @@
+"""The port's spans (``utils/trace.py``) and its count of UNet rows, on the
+CPU with a toy bundle of seeded random weights.
+
+With no tracer: nothing is recorded and the call sites get the shared null
+span. With one: the tree of one repaint run of T = 3 (every span under one
+image root, each inside its parent's interval, the estimators in each
+step), the phases on ``last_metrics``' own clock reads, Σ ``unet`` rows
+against the counted ``unet_view_forwards`` and the old formula, the decode
+routes, and the shared clock with ``torch.profiler``'s events.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from toy_configs import toy_bundle_config
+from torch_port_common import TORCH_TOY_RUNTIME, port_bundle_config
+
+from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
+from elasticdiffusion_tpu_torch.models.registry import ModelBundle, load_bundle
+from elasticdiffusion_tpu_torch.parallel import halo_decode as thd
+from elasticdiffusion_tpu_torch.utils import trace
+
+T, RS, H, W = 3, 1, 32, 48
+PHASES = ("preamble", "denoise", "decode")
+KEYS = {"steps", "views", "unet_view_forwards", "denoise_seconds",
+        "preamble_seconds", "decode_seconds", "decode_route"}
+
+
+@functools.lru_cache(maxsize=1)
+def _bundle():
+    return load_bundle("toy", TORCH_TOY_RUNTIME,
+                       bundle_config=port_bundle_config(toy_bundle_config()),
+                       device="cpu")
+
+
+def _generate(steps=T, rs=RS, **kw):
+    pipe = ElasticDiffusion(bundle=_bundle(), device="cpu")
+    pipe.seed_everything(3)
+    pipe.generate_image("a cat", height=H, width=W, num_inference_steps=steps,
+                        resampling_steps=rs, return_arrays=True, **kw)
+    return pipe
+
+
+@pytest.fixture
+def tracer():
+    trace.tracer = trace.Tracer()
+    try:
+        yield trace.tracer
+    finally:
+        trace.tracer = None
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """(spans, last_metrics) of one repaint run of T steps."""
+    trace.tracer = tr = trace.Tracer()
+    try:
+        pipe = _generate()
+    finally:
+        trace.tracer = None
+    return tr.spans, pipe.last_metrics
+
+
+def _children(spans, parent):
+    return [s for s in spans if s.parent == parent.id]
+
+
+def _one(spans, name):
+    found = [s for s in spans if s.name == name]
+    assert len(found) == 1, (name, len(found))
+    return found[0]
+
+
+def test_no_tracer_records_nothing_and_keeps_the_metrics():
+    assert trace.tracer is None
+    assert trace.span("unet", rows=2) is trace.NULL
+    assert trace.begin("preamble", 0, peak="cpu") is trace.NULL
+    with trace.span("x") as s:
+        s.set(a=1)
+    trace.NULL.end(5, route="plain")
+    pipe = _generate(steps=2)
+    m = pipe.last_metrics
+    assert set(m) == KEYS
+    assert "unet_view_forwards_per_sec" not in m
+    assert m["decode_route"] == "plain"
+
+
+def test_one_image_root_and_its_phases(traced):
+    spans, _ = traced
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["image"]
+    root = roots[0]
+    assert all(s.image == root.id for s in spans)
+    assert all(s.t1_ns is not None for s in spans)
+    assert [s.name for s in _children(spans, root)] == list(PHASES)
+    assert root.attrs == {"height": H, "width": W, "steps": T, "rs": RS,
+                          "views": root.attrs["views"], "B": 1}
+    assert [s.name for s in _children(spans, _one(spans, "preamble"))] == \
+        ["context", "schedule"]
+
+
+def test_steps_hold_their_estimators(traced):
+    spans, _ = traced
+    steps = _children(spans, _one(spans, "denoise"))
+    assert [(s.name, s.attrs) for s in steps] == [
+        ("step", {"i": i, "repaint": i < T - 1}) for i in range(T)]
+    for step in steps:
+        kids = _children(spans, step)
+        names = [k.name for k in kids]
+        if step.attrs["repaint"]:
+            assert names == ["direction", "local", "undo", "direction", "local"]
+            assert kids[2].attrs == {"micro_steps": 1000 // T}
+        else:
+            assert names == ["direction", "local"]
+        for d, which in zip(kids[::3], ("main", "repaint")):
+            rs = RS if which == "main" else 0
+            assert d.attrs == {"pass": which, "rs": rs}
+            inner = _children(spans, d)
+            assert [k.name for k in inner] == ["picks", "unet"]
+            assert inner[0].attrs == {"n_sub": rs + 1}
+            assert inner[1].attrs["rows"] == 2 * (rs + 1)
+        for loc in kids[1::3]:
+            assert loc.attrs["chunks"] == 1
+            assert [(k.name, k.attrs["rows"]) for k in _children(spans, loc)] \
+                == [("unet", loc.attrs["views"])]
+
+
+def test_every_child_lies_inside_its_parent(traced):
+    spans, _ = traced
+    by_id = {s.id: s for s in spans}
+    assert [s.id for s in spans] == list(range(len(spans)))
+    for s in spans:
+        assert s.t0_ns <= s.t1_ns
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.t0_ns <= s.t0_ns and s.t1_ns <= p.t1_ns, (s, p)
+
+
+def test_unet_rows_are_counted_and_equal_the_formula(traced):
+    spans, m = traced
+    denoise = _one(spans, "denoise")
+    rows = sum(s.attrs["rows"] for s in spans if s.name == "unet"
+               and denoise.t0_ns <= s.t0_ns <= denoise.t1_ns)
+    V = m["views"]
+    assert rows == m["unet_view_forwards"] \
+        == T * (2 * (RS + 1) + V) + (T - 1) * (2 + V)
+    unet = [s for s in spans if s.name == "unet"][0]
+    assert (unet.attrs["h"], unet.attrs["w"], unet.attrs["controlnet"]) == \
+        (8, 8, False)
+
+
+def test_apply_unet_counts_its_rows():
+    b = _bundle()
+    before = b.unet_rows
+    b.apply_unet(torch.zeros(3, 4, 8, 8), 500.0, torch.zeros(3, 77, 16))
+    assert b.unet_rows - before == 3
+
+
+def test_phases_share_the_clock_reads_of_last_metrics(traced):
+    spans, m = traced
+    for name in PHASES:
+        s = _one(spans, name)
+        assert abs((s.t1_ns - s.t0_ns) / 1e9 - m[f"{name}_seconds"]) < 1e-6
+        assert "peak_bytes" not in s.attrs      # a CPU run records no peak
+    assert _one(spans, "decode").attrs["route"] == m["decode_route"] == "plain"
+
+
+@pytest.mark.parametrize("tiled,halo,streamed,route", [
+    (False, True, False, "plain"),
+    (True, False, False, "tiled"),
+    (True, True, False, "halo:monolithic"),
+    (True, True, True, "halo:streamed"),
+])
+def test_decode_route_is_the_branch_taken(tiled, halo, streamed, route,
+                                          monkeypatch, tracer):
+    monkeypatch.setattr(ElasticDiffusion, "use_halo_decode", halo)
+    if streamed:
+        monkeypatch.setattr(thd, "MAX_PX", {dt: 1 for dt in thd.MAX_PX})
+    pipe = _generate(steps=1, rs=0, tiled_decoder=tiled)
+    assert pipe.last_metrics["decode_route"] == route
+    assert _one(tracer.spans, "decode").attrs["route"] == route
+
+
+def test_halo_decode_returns_its_branch():
+    b = _bundle()
+    lat = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 4, 16, 8)).astype(np.float32))
+    img = thd.halo_decode(b, lat)
+    for kw, branch in (({}, "monolithic"), ({"num_bands": 2}, "bands"),
+                       ({"streamed": True}, "streamed")):
+        got, name = thd.halo_decode(b, lat, return_branch=True, **kw)
+        assert name == branch and got.shape == img.shape
+
+
+def test_unet_spans_hold_the_profilers_events(monkeypatch, tracer):
+    """The shared clock: every ``apply_unet`` range that torch.profiler
+    records, and the ``aten::`` ops inside it, lie inside the matching
+    ``unet`` span within 0.5 ms."""
+    orig = ModelBundle.apply_unet
+
+    def ranged(self, *a, **k):
+        with record_function("test.apply_unet"):
+            return orig(self, *a, **k)
+    monkeypatch.setattr(ModelBundle, "apply_unet", ranged)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _generate(steps=2)
+    events = prof.profiler.kineto_results.events()
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in events
+                    if e.name() == "test.apply_unet")
+    aten = [(e.start_ns(), e.end_ns()) for e in events
+            if e.name().startswith("aten::")]
+    unets = [s for s in tracer.spans if s.name == "unet"]
+    assert len(ranges) == len(unets) > 0
+    slack = 500_000
+    for (r0, r1), s in zip(ranges, unets):
+        inside = [(a0, a1) for a0, a1 in aten if r0 <= a0 and a1 <= r1]
+        assert inside
+        for a0, a1 in [(r0, r1)] + inside:
+            assert s.t0_ns - slack <= a0 and a1 <= s.t1_ns + slack
+
+
+def test_an_exception_ends_the_spans_left_open(tracer):
+    with pytest.raises(ValueError):
+        with trace.span("image"):
+            trace.begin("preamble")
+            raise ValueError
+    image, pre = tracer.spans
+    assert pre.parent == image.id and image.t1_ns == pre.t1_ns is not None
+    ended = image.t1_ns
+    trace.span("later").end()
+    tracer.end(image, ended + 10)          # ending again changes nothing
+    assert image.t1_ns == ended and tracer.spans[-1].parent is None
+
+
+def test_peak_bytes_reset_at_begin_and_read_at_end(monkeypatch, tracer):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda dev: calls.append(("reset", dev)))
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda dev: calls.append(("read", dev)) or 1234)
+    dev = torch.device("cuda", 0)
+    with trace.span("denoise", peak=dev):
+        assert calls == [("reset", dev)]
+        with trace.span("step", peak="cpu"):
+            pass
+    assert calls == [("reset", dev), ("read", dev)]
+    denoise, step = tracer.spans
+    assert denoise.attrs == {"peak_bytes": 1234} and step.attrs == {}
