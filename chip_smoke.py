@@ -47,6 +47,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
             for the SDXL ControlNet bundle, one batch-8 ControlNet + UNet
             forward with every kernel against every plain version and cuDNN
             convs
+  graphs    per bundle that lists `graph_rows`, the UNet forward through
+            ModelBundle.apply_unet's CUDA graphs (models/unet_graphs.py)
+            at the benchmark cells' keys: SD 2.1 16 and 2 rows at 64x64,
+            SDXL 22, 16, 4 and 2 rows at 128x128, one --fp32 key (sd21_fp32)
+            and one ControlNet key (sdxl_canny, the ControlNet eager, its
+            residuals static inputs). Each key's first call must run eagerly,
+            its second capture, its third replay; both graph outputs are held
+            to the module's eager forward of the same inputs (max |d|,
+            expected 0), a replay at another timestep too. Prints the host's
+            launch calls and the device's ops of one eager call and of one
+            replay (torch.profiler), enqueue and CUDA-event ms of both, the
+            allocator's bytes before and after the captures beside the
+            graphs' static tensors. Aliasing guard: every key replayed, then
+            key A, key B and A again on new inputs; the tensors returned
+            before must not change. Reload: every UNet weight scaled in
+            place by convert.load_into, a replay must equal the eager
+            forward of the new weights, and again of the old ones once
+            they are back. Fails unless a replay counts the same wrapper
+            launches and launch-log entries as an eager call of its key,
+            with every kernel the bundle runs among them
   requests  ElasticDiffusion.generate_image answers requests at full width
             with seeded random weights on seven paths, one bundle at a time:
             SDXL 1.0 and SD 1.5 with conv_impl='kernel', SD 2.1 with the
@@ -99,7 +119,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
             mesh of two spawned ranks (both on cuda:0 under gloo on one
             GPU, one GPU a rank under NCCL on two), one request at
             1024x2048 px with tiled_decoder=True: each rank runs half of
-            every UNet batch (a forward hook counts the rows) and one band
+            every UNet batch (its rows counted at apply_unet) and one band
             of the halo decode's stage b. Fails unless the ranks' final
             latents, images and mesh decodes are bitwise equal, the final
             latent is within E2E_TOL_REL_L2 of the same request on one GPU
@@ -141,6 +161,7 @@ import time
 
 import torch
 
+from elasticdiffusion_tpu_torch import kernels
 from elasticdiffusion_tpu_torch.models.layers import conv2d
 from elasticdiffusion_tpu_torch.utils.flops import (H100_BF16_TFLOPS,
                                                     H100_FP32_TFLOPS,
@@ -154,8 +175,8 @@ PEAK_OPS_PER_S = {torch.bfloat16: H100_BF16_TFLOPS * 1e12,
 # that run three TF32 passes
 PEAK_TF32_OPS_PER_S = 495e12
 
-ALL_PHASES = ("device", "build", "kernels", "api", "model", "requests",
-              "decode", "apps", "mesh")
+ALL_PHASES = ("device", "build", "kernels", "api", "model", "graphs",
+              "requests", "decode", "apps", "mesh")
 
 # The mesh phase: SDXL 1.0 at 1024x2048 px on a (1, MESH_WORLD) mesh. Its
 # UNet batches (direction 8 rows, repaint direction 2, 4 views) split into
@@ -1071,7 +1092,7 @@ PATHS = (
     # SDXL: the reference's largest size (2048x2048 px, 16 views in one
     # batch) through tiled_decoder=True; its decode phase at that size
     {"name": "sdxl", "sd_version": "XL1.0", "conv_impl": "kernel",
-     "latent": 128, "decode": (256, 256),
+     "latent": 128, "decode": (256, 256), "graph_rows": (22, 16, 4, 2),
      "requests": ({"height": 1024, "width": 1536},
                   {"height": 1536, "width": 1536},
                   {"height": 2048, "width": 2048, "tiled_decoder": True})},
@@ -1081,7 +1102,7 @@ PATHS = (
      "resume": True, "requests": ({"height": 512, "width": 768},)},
     # SD 2.1: the overlap-averaged tiles of a low_vram pipe at 768x768
     {"name": "sd21", "sd_version": "2.1", "conv_impl": "cudnn", "latent": 64,
-     "decode": (96, 96),
+     "decode": (96, 96), "graph_rows": (16, 2),
      "requests": ({"height": 512, "width": 768},
                   {"height": 768, "width": 768},
                   {"height": 768, "width": 768, "tiled_decoder": True,
@@ -1091,7 +1112,7 @@ PATHS = (
     # ControlNet gets its own batch-8 model check; the SD 1.5 one none (its
     # shapes are the SD 1.5 UNet's down path).
     {"name": "sdxl_canny", "sd_version": "XL1.0", "conv_impl": "kernel",
-     "latent": 128, "controlnet": "canny",
+     "latent": 128, "controlnet": "canny", "graph_rows": (2,),
      "requests": ({"height": 1024, "width": 1536},)},
     {"name": "sd15_depth", "sd_version": "1.5", "conv_impl": "kernel",
      "controlnet": "depth", "requests": ({"height": 512, "width": 768},)},
@@ -1106,7 +1127,7 @@ PATHS = (
      "latent": 64, "fp32": True, "entry": "cli", "steps": 2,
      "requests": ({"height": 512, "width": 768},)},
     {"name": "sd21_fp32", "sd_version": "2.1", "conv_impl": "kernel",
-     "latent": 64, "fp32": True, "steps": 2,
+     "latent": 64, "fp32": True, "steps": 2, "graph_rows": (2,),
      "requests": ({"height": 512, "width": 768},)},
 )
 
@@ -1200,20 +1221,21 @@ def run_cli(bundle, path, req, steps: int, resampling: int, seed: int):
     return imgs, info, rec.states()
 
 
-def unet_inputs(bundle, n: int, gen: torch.Generator):
-    """(latent, context, SDXL extras) of a batch-8 forward at n x n."""
+def unet_inputs(bundle, n: int, gen: torch.Generator, rows: int = 8):
+    """(latent, context, SDXL extras) of a forward of `rows` at n x n."""
     dt = bundle.runtime.compute_dtype
     ucfg = bundle.config.unet
-    lat = torch.randn(8, 4, n, n, generator=gen, device="cuda").to(dt)
-    ctx = torch.randn(8, 77, ucfg.cross_attention_dim, generator=gen,
+    lat = torch.randn(rows, 4, n, n, generator=gen, device="cuda").to(dt)
+    ctx = torch.randn(rows, 77, ucfg.cross_attention_dim, generator=gen,
                       device="cuda").to(dt)
     kw = {}
     if bundle.config.is_xl:
         kw = {"added_text_embeds": torch.randn(
-                  8, ucfg.pooled_projection_dim, generator=gen, device="cuda"),
+                  rows, ucfg.pooled_projection_dim, generator=gen,
+                  device="cuda"),
               "added_time_ids": torch.tensor(
                   [[4096.0, 6144.0, 0.0, 0.0, 4096.0, 6144.0]],
-                  device="cuda").expand(8, 6)}
+                  device="cuda").expand(rows, 6)}
     return lat, ctx, kw
 
 
@@ -1326,18 +1348,201 @@ def phase_controlnet_model(bundle, path):
             fail(f"{path['name']} {name}: zero output")
 
 
-def kernel_counts():
-    """Every kernel wrapper by name; the GroupNorm kernel's two halves
-    launch only in a streamed decode."""
-    from elasticdiffusion_tpu_torch.kernels.conv3x3 import conv3x3
-    from elasticdiffusion_tpu_torch.kernels.flash_attention import flash_attention
-    from elasticdiffusion_tpu_torch.kernels.groupnorm import (
-        fused_group_norm, group_norm_apply, group_norm_sums)
-    from elasticdiffusion_tpu_torch.kernels.layernorm import fused_layer_norm
-    return {"flash_attention": flash_attention, "fused_layer_norm": fused_layer_norm,
-            "fused_group_norm": fused_group_norm, "conv3x3": conv3x3,
-            "group_norm_sums": group_norm_sums,
-            "group_norm_apply": group_norm_apply}
+def profile_launches(fn) -> tuple:
+    """(host launch calls, device ops, memsets by the innermost operator
+    that issued them) of one call of `fn`, from torch.profiler's events;
+    launches counted as ``portbench/spans.py`` counts them (kernels,
+    graphs, copies, sets; a ``cu*`` call inside a ``cuda*`` call once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import spans
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = sum(1 for e in events
+              if e.device_type() == cuda and not e.is_user_annotation())
+    host = [e for e in events if e.device_type() != cuda]
+    callers = sorted(((e.start_ns(), e.end_ns(), e.start_thread_id(),
+                       e.name()) for e in host
+                      if not e.name().startswith(("cu", "Memset", "Memcpy"))),
+                     key=lambda c: c[0])
+    memsets = collections.Counter()
+    for e in host:
+        if e.name().startswith("cudaMemsetAsync"):
+            inner = [c for c in callers if c[0] <= e.start_ns()
+                     and c[1] >= e.end_ns() and c[2] == e.start_thread_id()]
+            memsets[inner[-1][3] if inner else "none"] += 1
+    return len(spans.launches(events)), ops, dict(memsets.most_common(6))
+
+
+def graph_pool_bytes() -> int:
+    """Bytes the allocator holds in private pools (CUDA graphs')."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def phase_graphs(bundle, path):
+    """The UNet forward through ``apply_unet``'s CUDA graphs at the path's
+    keys, against the module's eager forward (see the module docstring)."""
+    from elasticdiffusion_tpu_torch.models.convert import load_into
+    from elasticdiffusion_tpu_torch.models.registry import _fp32_convs
+    from elasticdiffusion_tpu_torch.models.unet_graphs import counted
+    wrappers = kernels.wrappers()
+    names = {w: n for n, w in wrappers.items()}
+    used = ["flash_attention", "fused_layer_norm", "fused_group_norm"]
+    if path["conv_impl"] == "kernel":
+        used.append("conv3x3")
+    graphs = bundle.unet_graphs
+    graphs.drop()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, f = path["latent"], bundle.vae_scale_factor
+    t0, t1 = 501.0, 261.0
+    cases = {}
+    for rows in path["graph_rows"]:
+        lat, ctx, kw = unet_inputs(bundle, n, gen, rows)
+        if bundle.controlnet is not None:
+            cond = torch.rand(rows, 3, n * f, n * f, generator=gen,
+                              device="cuda")
+            down, mid = bundle.apply_controlnet(lat, t0, ctx, cond, **kw)
+            kw = {**kw, "down_block_residuals": down,
+                  "mid_block_residual": mid}
+        cases[rows] = (lat, ctx, kw)
+
+    def eager(rows, t=t0, inputs=None):
+        lat, ctx, kw = inputs or cases[rows]
+        with torch.no_grad(), _fp32_convs():
+            return bundle.unet(lat, t, ctx, **kw)
+
+    def graphed(rows, t=t0, inputs=None):
+        lat, ctx, kw = inputs or cases[rows]
+        return bundle.apply_unet(lat, t, ctx, **kw)
+
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    out = {"phase": "graphs", "path": path["name"],
+           "dtype": str(bundle.runtime.compute_dtype),
+           "controlnet": bundle.controlnet is not None, "keys": {}}
+    worst = 0.0
+    for rows in path["graph_rows"]:
+        want = eager(rows)
+        kinds, diffs = [], []
+        for _ in range(3):
+            got = graphed(rows)
+            kinds.append(graphs.last)
+            diffs.append((got.float() - want.float()).abs().max().item())
+        if kinds != ["eager", "capture", "replay"]:
+            fail(f"{path['name']} graphs {rows} rows: calls ran {kinds}")
+        # another timestep: the fill of the static timestep
+        diffs.append((graphed(rows, t1).float()
+                      - eager(rows, t1).float()).abs().max().item())
+        if graphs.last != "replay":
+            fail(f"{path['name']} graphs {rows} rows: the second timestep "
+                 f"ran {graphs.last}")
+        worst = max(worst, *diffs)
+        out["keys"][rows] = {"max_abs_diff": diffs,
+                             "rms": want.float().pow(2).mean().sqrt().item()}
+    # a replay counts the kernels an eager call of its key counts
+    counts = {}
+    for rows in path["graph_rows"]:
+        _, e = counted(lambda: eager(rows))
+        _, r = counted(lambda: graphed(rows))
+        counts[rows] = {
+            kind: {"counters": {f"{names[w]}.{c}": n
+                                for (w, c), n in sorted(
+                                    x.counters.items(),
+                                    key=lambda i: (names[i[0][0]], i[0][1]))},
+                   "log_entries": sum(x.log.values())}
+            for kind, x in (("eager", e), ("replay", r))}
+        counts[rows]["same"] = (e.counters == r.counters and e.log == r.log
+                                and graphs.last == "replay")
+    torch.cuda.synchronize()
+    static = sum(t.numel() * t.element_size() for g in graphs.graphs.values()
+                 for t in (*[x for x in g.inputs if x is not None], g.t, g.out))
+    mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    out["memory"] = {"allocated_before": mem0[0], "allocated_after": mem1[0],
+                     "reserved_before": mem0[1], "reserved_after": mem1[1],
+                     "graph_pool_bytes": graph_pool_bytes(),
+                     "static_bytes": static,
+                     "allocated_over_static": mem1[0] - mem0[0] - static}
+    for rows in path["graph_rows"]:
+        e_launch, e_ops, e_sets = profile_launches(lambda: eager(rows))
+        r_launch, r_ops, _ = profile_launches(lambda: graphed(rows))
+        out["keys"][rows].update({
+            "eager_launches": e_launch, "eager_device_ops": e_ops,
+            "eager_memsets_by_op": e_sets,
+            "replay_launches": r_launch, "replay_device_ops": r_ops,
+            "eager_enqueue_ms": enqueue_ms(lambda: eager(rows)),
+            "replay_enqueue_ms": enqueue_ms(lambda: graphed(rows)),
+            "eager_ms": time_ms(lambda: eager(rows), 1, 5),
+            "replay_ms": time_ms(lambda: graphed(rows), 1, 5)})
+    # aliasing: every key replayed, then A, B, A on new inputs
+    first = {rows: graphed(rows) for rows in path["graph_rows"]}
+    kept = {rows: o.clone() for rows, o in first.items()}
+    a, b = path["graph_rows"][0], path["graph_rows"][-1]
+    fresh = {}
+    for rows in (a, b):
+        lat, ctx, kw = cases[rows]
+        fresh[rows] = (lat.flip(0).contiguous(), ctx.flip(0).contiguous(), kw)
+    alias = [(graphed(a, inputs=fresh[a]), eager(a, inputs=fresh[a])),
+             (graphed(b, inputs=fresh[b]), eager(b, inputs=fresh[b])),
+             (graphed(a), first[a])]
+    changed = [rows for rows in first if not torch.equal(first[rows], kept[rows])]
+    alias_diff = max((x.float() - y.float()).abs().max().item() for x, y in alias)
+    out["aliasing"] = {"returned_tensors_changed": changed,
+                       "max_abs_diff": alias_diff}
+    # a reload in place: the replay reads the new weights where they lie
+    old = {k: v.clone() for k, v in bundle.unet.state_dict().items()}
+    load_into(bundle.unet, {k: v * 1.01 if v.is_floating_point() else v
+                            for k, v in old.items()}, "scaled UNet")
+    new_out = graphed(a)
+    reload_kind = graphs.last
+    reload_diff = (new_out.float() - eager(a).float()).abs().max().item()
+    moved = (new_out.float() - first[a].float()).abs().max().item()
+    load_into(bundle.unet, old, "UNet")
+    del old
+    back_diff = (graphed(a).float() - first[a].float()).abs().max().item()
+    out["reload"] = {"ran": [reload_kind, graphs.last],
+                     "max_abs_diff": reload_diff, "moved_by": moved,
+                     "restored_max_abs_diff": back_diff}
+    out["wrapper_counts"] = counts
+    out["counts"] = {"replays": graphs.replays, "captures": graphs.captures,
+                     "eager": graphs.eager}
+    # the pool in either order of keys: the largest is captured first
+    out["pool_by_order"] = {}
+    for order in (sorted(path["graph_rows"]),
+                  sorted(path["graph_rows"], reverse=True)):
+        graphs.drop()
+        c0 = graphs.captures
+        for _ in range(3):
+            for rows in order:
+                graphed(rows)
+        torch.cuda.synchronize()
+        out["pool_by_order"][",".join(map(str, order))] = {
+            "captures": graphs.captures - c0, "pool_bytes": graph_pool_bytes()}
+    graphs.drop()
+    emit(out)
+    if changed:
+        fail(f"{path['name']} graphs: a replay changed the tensors returned "
+             f"for {changed} rows")
+    for rows, c in counts.items():
+        if not c["same"]:
+            fail(f"{path['name']} graphs {rows} rows: a replay counted "
+                 f"{c['replay']}, an eager call {c['eager']}")
+        never = [k for k in used
+                 if not c["eager"]["counters"].get(f"{k}.launches")]
+        if never:
+            fail(f"{path['name']} graphs {rows} rows: {never} launched "
+                 f"nothing")
+    if out["reload"]["ran"] != ["replay", "replay"] or not moved > 0:
+        fail(f"{path['name']} graphs: the reload check ran "
+             f"{out['reload']['ran']}, moved by {moved}")
+    if not worst == 0.0 or not alias_diff == 0.0 or not reload_diff == 0.0 \
+            or not back_diff == 0.0:
+        fail(f"{path['name']} graphs: replay differs from the eager forward "
+             f"by {max(worst, alias_diff, reload_diff, back_diff)}")
 
 
 def plain_cuda_counts():
@@ -1616,8 +1821,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     plain version (None when that phase did not run): a shape launched here
     and checked nowhere fails the run. After the counts are read, the first
     request runs again with the plain versions (`end_to_end`)."""
-    import elasticdiffusion_tpu_torch.kernels as kernels
-    wrappers, plain = kernel_counts(), plain_cuda_counts()
+    wrappers, plain = kernels.wrappers(), plain_cuda_counts()
     conv_on = path["conv_impl"] == "kernel"
     bundle = pipe.bundle
     controlnet = bundle.controlnet
@@ -1659,13 +1863,17 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     def read_tf32(module, args):
         tf32_read.append(torch.backends.cudnn.allow_tf32)
 
-    hooks = [bundle.unet.register_forward_hook(count("unet")),
-             bundle.unet.register_forward_pre_hook(read_tf32)]
+    hooks = [bundle.unet.register_forward_pre_hook(read_tf32)]
     if controlnet is not None:
         hooks += [controlnet.register_forward_hook(count("controlnet")),
                   controlnet.register_forward_hook(first_residuals),
                   controlnet.register_forward_pre_hook(read_tf32)]
     kernels.launch_log = collections.Counter()
+    # the UNet calls the pipeline made: a call replayed from a CUDA graph
+    # runs no module forward and no hook, and counts here
+    graphs = bundle.unet_graphs
+    applied, graphs0 = [], (graphs.replays, graphs.captures)
+    unrecord = record_unet_rows(bundle, applied)
 
     answers, first = [], None
     for i, req in enumerate(path["requests"]):
@@ -1712,6 +1920,10 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         if path.get("resume") else None
     for h in hooks:
         h.remove()
+    unrecord()
+    graphed = {"apply_unet_calls": len(applied),
+               "replays": graphs.replays - graphs0[0],
+               "captures": graphs.captures - graphs0[1]}
     log = kernels.launch_log
     kernels.launch_log = None
     plain_calls = {n: d.plain_cuda_calls for n, d in plain.items()}
@@ -1720,7 +1932,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     gn_copies = wrappers["fused_group_norm"].copies
     e2e = end_to_end(pipe, path, steps, resampling, first, conditions[0])
     cpu_calls = conv2d.cpu_calls  # the end-to-end rerun too
-    expected_conv = (len(unet_convs) * calls["unet"]
+    expected_conv = (len(unet_convs) * len(applied)
                      + len(cn_convs) * calls["controlnet"]) if conv_on else 0
     unchecked = {} if checked is None else {
         "/".join(map(str, key)): n for key, n in sorted(log.items(), key=str)
@@ -1729,7 +1941,8 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "sd_version": path["sd_version"], "conv_impl": path["conv_impl"],
           "steps": steps, "resampling_steps": resampling,
           "answers": answers, "plain_versions_on_cuda": plain_calls,
-          "launches": totals, "unet_calls": calls["unet"],
+          "launches": totals, "unet_calls": len(applied),
+          "unet_graphs": graphed,
           "gate_convs_per_unet_call": len(unet_convs),
           "controlnet": path.get("controlnet"),
           "controlnet_calls": calls["controlnet"],
@@ -1770,12 +1983,12 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
              f"inside the conv kernel's gate under conv_impl='kernel'")
     if totals["conv3x3"] != expected_conv:
         fail(f"{path['name']}: conv3x3 launched {totals['conv3x3']} times, the "
-             f"code gives {len(unet_convs)} x {calls['unet']} + "
+             f"code gives {len(unet_convs)} x {len(applied)} + "
              f"{len(cn_convs)} x {calls['controlnet']} = {expected_conv}")
     if controlnet is not None:
-        if calls["controlnet"] != calls["unet"]:
+        if calls["controlnet"] != len(applied):
             fail(f"{path['name']}: {calls['controlnet']} ControlNet calls for "
-                 f"{calls['unet']} UNet calls")
+                 f"{len(applied)} UNet calls")
         if not (len(residual_rms) == 2
                 and all(v > 0 for v in residual_rms.values())):
             fail(f"{path['name']}: the ControlNet's residuals are zero at the "
@@ -1823,7 +2036,6 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
     phase. After the counts are read, the band route runs again on the
     plain versions (`rel_l2_plain`), and `chunk_budgets`: the streamed
     route again at each slab budget (bytes)."""
-    import elasticdiffusion_tpu_torch.kernels as kernels
     from elasticdiffusion_tpu_torch.parallel import halo_decode as hd
     h, w = path["decode"]
     vsf = bundle.vae_scale_factor
@@ -1838,7 +2050,7 @@ def phase_decode(bundle, path, checked=None, chunk_budgets=()):
                                                       streamed=True),
               "halo_bands": lambda: hd.halo_decode(bundle, z,
                                                    num_bands=DECODE_BANDS)}
-    wrappers, plain = kernel_counts(), plain_cuda_counts()
+    wrappers, plain = kernels.wrappers(), plain_cuda_counts()
     for wr in wrappers.values():
         wr.launches = 0
     wrappers["fused_group_norm"].copies = 0
@@ -2033,7 +2245,6 @@ def phase_apps(bundle, path, checked=None, steps: int = 4,
     import numpy as np
     from PIL import Image
 
-    import elasticdiffusion_tpu_torch.kernels as kernels
     from elasticdiffusion_tpu_torch.apps import (cli, cli_controlnet,
                                                  pca_scores, preprocessors)
     from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
@@ -2103,7 +2314,7 @@ def phase_apps(bundle, path, checked=None, steps: int = 4,
                 for name, r in (("mid", mid), ("down0", down[0])):
                     residual_rms[name] = r.float().pow(2).mean().sqrt().item()
 
-        wrappers, plain = kernel_counts(), plain_cuda_counts()
+        wrappers, plain = kernels.wrappers(), plain_cuda_counts()
         for w in wrappers.values():
             w.launches = 0
         for d in plain.values():
@@ -2300,7 +2511,6 @@ def mesh_rank(rank: int, world: int, backend: str, tmp: str, seed: int,
     import os
 
     import torch.distributed as dist
-    import elasticdiffusion_tpu_torch.kernels as kernels
     from elasticdiffusion_tpu_torch.configs import RuntimeConfig
     from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
     from elasticdiffusion_tpu_torch.models.registry import load_bundle
@@ -2326,10 +2536,9 @@ def mesh_rank(rank: int, world: int, backend: str, tmp: str, seed: int,
         load_seconds = time.time() - t0
         req = MESH_PATH["requests"][0]
         rows = []
-        hook = bundle.unet.register_forward_pre_hook(
-            lambda m, args: rows.append(int(args[0].shape[0])))
+        unrecord = record_unet_rows(bundle, rows)
         convs = gate_convs(bundle.unet)
-        wrappers, plain = kernel_counts(), plain_cuda_counts()
+        wrappers, plain = kernels.wrappers(), plain_cuda_counts()
         for w in wrappers.values():
             w.launches = 0
         for d in plain.values():
@@ -2345,7 +2554,7 @@ def mesh_rank(rank: int, world: int, backend: str, tmp: str, seed: int,
         peak = torch.cuda.max_memory_allocated()
         log = kernels.launch_log
         kernels.launch_log = None
-        hook.remove()
+        unrecord()
         out = {"rank": rank, "device": str(torch.device(
                    "cuda", torch.cuda.current_device())),
                "load_seconds": load_seconds, "wall_seconds": wall,
@@ -2373,10 +2582,9 @@ def mesh_rank(rank: int, world: int, backend: str, tmp: str, seed: int,
             one = ElasticDiffusion(device="cuda", bundle=bundle,
                                    sd_version="XL1.0")
             one_rows = []
-            hook = bundle.unet.register_forward_pre_hook(
-                lambda m, args: one_rows.append(int(args[0].shape[0])))
+            unrecord = record_unet_rows(bundle, one_rows)
             _, one_info, _ = generate(one, MESH_PATH, req, steps, resampling, 0)
-            hook.remove()
+            unrecord()
             out["one_gpu_rows"] = one_rows
             out["one_gpu_metrics"] = one.last_metrics
             out["rel_l2_to_one_gpu"] = rel_l2(
@@ -2388,6 +2596,20 @@ def mesh_rank(rank: int, world: int, backend: str, tmp: str, seed: int,
         dist.destroy_process_group()
     with open(f"{tmp}/rank{rank}.json", "w") as f:
         json.dump(out, f)
+
+
+def record_unet_rows(bundle, rows: list):
+    """Append the rows of every ``bundle.apply_unet`` call to `rows`, a
+    call replayed from a CUDA graph too (it runs no module hook). Returns
+    the function that stops it."""
+    apply = bundle.apply_unet
+
+    def recorded(latent, *args, **kwargs):
+        rows.append(int(latent.shape[0]))
+        return apply(latent, *args, **kwargs)
+
+    bundle.apply_unet = recorded
+    return lambda: delattr(bundle, "apply_unet")
 
 
 def phase_mesh(seed: int, steps: int, resampling: int, smi: str,
@@ -2581,7 +2803,7 @@ def main(argv=None) -> int:
 
     logs, totals = {}, collections.Counter()
     budgets = [int(float(b)) for b in opt.chunk_budgets.split(",") if b]
-    per_path = {"model", "requests", "decode"} & set(phases)
+    per_path = {"model", "graphs", "requests", "decode"} & set(phases)
     if per_path or "apps" in phases:
         from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
         from elasticdiffusion_tpu_torch.models.registry import load_bundle
@@ -2612,6 +2834,8 @@ def main(argv=None) -> int:
                         phase_model(bundle, path)
                     else:
                         phase_controlnet_model(bundle, path)
+            if "graphs" in phases and "graph_rows" in path:
+                phase_graphs(bundle, path)
             if "requests" in phases:
                 pipe = ElasticDiffusion(device="cuda", bundle=bundle,
                                         sd_version=path["sd_version"],

@@ -508,7 +508,9 @@ class ElasticDiffusion:
         ``last_metrics`` after the call: ``steps``, ``views``,
         ``unet_view_forwards`` (the UNet rows of the step loop, counted at
         ``ModelBundle.apply_unet``; with a mesh, this rank's rows, padding
-        included), ``preamble_seconds``, ``denoise_seconds`` and
+        included), ``unet_graph_replays`` and ``unet_graph_captures`` (the
+        step loop's UNet calls replayed from a CUDA graph and captured into
+        one, ``models/unet_graphs.py``; 0 on the CPU), ``preamble_seconds``, ``denoise_seconds`` and
         ``decode_seconds`` (host clock, each phase ended by a
         synchronisation on the GPU) and ``decode_route`` (``plain``,
         ``tiled`` or ``halo:`` and the branch ``halo_decode`` took). With a
@@ -535,6 +537,9 @@ class ElasticDiffusion:
                                     controlnet_conditioning_scale)
             vsf = self.vae_scale_factor
             lat_h, lat_w = height // vsf, width // vsf
+            # a demo that changes sizes keeps no graphs of the old ones
+            graphs = b.unet_graphs
+            graphs.for_image((height, width, B, ctx.view_chunk))
 
             # initial latent
             if latents is None:
@@ -578,6 +583,7 @@ class ElasticDiffusion:
             preamble.end(t_start)
             denoise = trace.begin("denoise", t_start, peak=dev)
             rows0 = b.unet_rows
+            replays0, captures0 = graphs.replays, graphs.captures
             for i in steps_iter:
                 inp, use_repaint = sched.inputs(i)
                 if scripted_noise is not None:
@@ -605,6 +611,8 @@ class ElasticDiffusion:
             denoise.end(t_end)
             self.last_metrics = {
                 "steps": T, "views": V, "unet_view_forwards": rows,
+                "unet_graph_replays": graphs.replays - replays0,
+                "unet_graph_captures": graphs.captures - captures0,
                 "denoise_seconds": (t_end - t_start) / 1e9,
                 "preamble_seconds": (t_start - t_fn0) / 1e9,
             }

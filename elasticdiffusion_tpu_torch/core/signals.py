@@ -29,7 +29,9 @@ Structure, as in the JAX package:
     ``sharded_call``; each view chunk is split on its own. The generators
     are never split: every rank draws the same numbers
   - with a tracer set (``utils/trace.py``), ``unet_step``, the pick chain,
-    the local signal and ``undo_step`` record their spans
+    the local signal and ``undo_step`` record their spans; the ``unet``
+    span's ``graph`` attribute says whether the UNet forward was replayed
+    from a CUDA graph, captured, or ran eagerly
 """
 
 from __future__ import annotations
@@ -68,7 +70,10 @@ def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
               controlnet_scale: float = 1.0):
     """background pad -> (ControlNet ->) UNet -> crop. x: (B', C, h, w);
     controlnet_cond: (B', 3, H', W') at the padded input's pixels. The
-    trace's ``unet`` span."""
+    trace's ``unet`` span; its ``graph`` attribute says how the UNet ran
+    (``"replay"``, ``"capture"`` or ``"eager"``, ``models/unet_graphs.py``).
+    Only the UNet is graphed: the pads, the ControlNet and the crop run
+    eagerly around it."""
     with trace.span("unet", rows=x.shape[0],
                     controlnet=controlnet_cond is not None) as sp:
         x_in = pad_with_background(x, pad_spec, step_bgs)
@@ -84,6 +89,7 @@ def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
             kwargs["down_block_residuals"] = down
             kwargs["mid_block_residual"] = mid
         eps = bundle.apply_unet(x_in, t, context, **kwargs)
+        sp.set(graph=bundle.unet_graphs.last)
         return crop_from_padding(eps, pad_spec)
 
 

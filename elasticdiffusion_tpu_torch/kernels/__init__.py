@@ -1,7 +1,11 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 Each module holds one kernel's wrapper, its plain version, a launch count
-and the dispatch on ``use_kernels``:
+and the dispatch on ``use_kernels``; ``wrappers`` lists the wrappers. The
+launch counts (``<wrapper>.launches``) and ``launch_log`` count calls of the
+Python wrappers. A UNet forward replayed from a CUDA graph
+(``models/unet_graphs.py``) calls none, and adds what its capture counted:
+the counts are the kernels that ran.
 
   'auto'  kernel for a CUDA tensor, plain version for a CPU tensor
   'on'    kernel; a CPU tensor raises
@@ -38,10 +42,25 @@ def wants_kernel(mode: str, is_cuda: bool, what: str) -> bool:
 
 
 # Optional per-shape record of launches: set to a collections.Counter to
-# learn which shapes a run sent to which kernel; None costs nothing.
+# learn which shapes a run sent to which kernel; None costs nothing. A CUDA
+# graph's replay adds the entries its capture recorded.
 launch_log = None
 
 
 def note_launch(name: str, *key) -> None:
     if launch_log is not None:
         launch_log[(name,) + key] += 1
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper by name, each with its ``launches`` count; the
+    GroupNorm kernel's two halves launch only in a streamed decode."""
+    from .conv3x3 import conv3x3
+    from .flash_attention import flash_attention
+    from .groupnorm import fused_group_norm, group_norm_apply, group_norm_sums
+    from .layernorm import fused_layer_norm
+    return {"flash_attention": flash_attention,
+            "fused_layer_norm": fused_layer_norm,
+            "fused_group_norm": fused_group_norm, "conv3x3": conv3x3,
+            "group_norm_sums": group_norm_sums,
+            "group_norm_apply": group_norm_apply}

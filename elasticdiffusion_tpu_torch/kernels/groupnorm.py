@@ -348,6 +348,7 @@ def _align(*ptrs: int) -> int:
 
 
 _counters = {}  # device -> int32 zeros: blocks done (and gone), per image
+_outgrown = []  # buffers replaced by larger ones: a CUDA graph may hold one
 
 
 def _counter(device: torch.device, B: int) -> torch.Tensor:
@@ -355,9 +356,14 @@ def _counter(device: torch.device, B: int) -> torch.Tensor:
     grid bodies) and of those past the meeting point (grid body). The last
     block of an image sets its counts back to 0, so the buffer is zeroed
     once a process. One buffer a device: launches must not overlap on two
-    streams (the port launches on one)."""
+    streams (the port launches on one). A buffer outgrown by a larger batch
+    is kept, never freed: a CUDA graph captured before still launches on it
+    (``models/unet_graphs.py``; a graph's first call of its shape runs
+    eagerly, so none is allocated inside a capture)."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < B:
+        if buf is not None:
+            _outgrown.append(buf)
         buf = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
         _counters[device] = buf
     return buf

@@ -25,7 +25,7 @@ from __future__ import annotations
 import copy
 import math
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import torch
@@ -39,6 +39,7 @@ from .convert import checkpoint_layout, load_into, read_model
 from .controlnet import ControlNet
 from .layers import set_conv_impl, set_use_kernels
 from .unet import UNet2DCondition
+from .unet_graphs import UNetGraphs, graph_key
 from .vae import AutoencoderKL
 
 
@@ -82,6 +83,9 @@ class ModelBundle:
     controlnet: Optional[ControlNet] = None
     # UNet rows run by ``apply_unet`` since the bundle was made
     unet_rows: int = 0
+    # the UNet forward's CUDA graphs (``models/unet_graphs.py``)
+    unet_graphs: UNetGraphs = field(default_factory=UNetGraphs, repr=False,
+                                    compare=False)
 
     def _denoisers(self):
         return [m for m in (self.unet, self.controlnet) if m is not None]
@@ -92,24 +96,30 @@ class ModelBundle:
         for m in (*self._denoisers(), self.vae, self.vae_fp32,
                   *self.text_models):
             set_use_kernels(m, mode)
+        self.unet_graphs.drop()
 
     def set_conv_impl(self, mode: str) -> None:
         """'cudnn' | 'kernel' for the 3x3 convolutions of the UNet and the
         ControlNet (the VAE stays on cuDNN)."""
         for m in self._denoisers():
             set_conv_impl(m, mode)
+        self.unet_graphs.drop()
 
-    @torch.no_grad()
     def apply_unet(self, latent_nchw, t, context, added_text_embeds=None,
                    added_time_ids=None, down_block_residuals=None,
                    mid_block_residual=None):
+        """The UNet forward, without autograd. On a CUDA device it runs
+        from a CUDA graph of its input key from the key's second call on
+        (``models/unet_graphs.py``); on the CPU, eagerly."""
         self.unet_rows += latent_nchw.shape[0]
-        with _fp32_convs():
-            return self.unet(latent_nchw, t, context,
-                             added_text_embeds=added_text_embeds,
-                             added_time_ids=added_time_ids,
-                             down_block_residuals=down_block_residuals,
-                             mid_block_residual=mid_block_residual)
+        extras = dict(added_text_embeds=added_text_embeds,
+                      added_time_ids=added_time_ids,
+                      down_block_residuals=down_block_residuals,
+                      mid_block_residual=mid_block_residual)
+        with torch.no_grad(), _fp32_convs():
+            key = graph_key(latent_nchw, t, context, **extras)
+            return self.unet_graphs(key, self.unet, latent_nchw, t, context,
+                                    **extras)
 
     @torch.no_grad()
     def apply_controlnet(self, latent_nchw, t, context, condition_nchw,

@@ -15,6 +15,7 @@ follow the diffusers checkpoint (``down_blocks.{i}.resnets.{j}`` ...).
 
 from __future__ import annotations
 
+import numbers
 from typing import Optional, Sequence
 
 import torch
@@ -93,7 +94,11 @@ class UNetTrunk(nn.Module):
     def _embedding(self, timesteps, B, added_text_embeds, added_time_ids):
         cfg = self.config
         dev = self.conv_in.weight.device
-        t = torch.as_tensor(timesteps, dtype=torch.float32, device=dev)
+        if isinstance(timesteps, numbers.Number):
+            # a fill, where as_tensor would copy from the host and wait
+            t = torch.full((), timesteps, dtype=torch.float32, device=dev)
+        else:
+            t = torch.as_tensor(timesteps, dtype=torch.float32, device=dev)
         if t.dim() == 0:
             t = t.expand(B)
         t_emb = timestep_embedding(t, cfg.block_out_channels[0],

@@ -29,7 +29,9 @@ are kept in memory, in the order they began. ``generate_image`` records:
   local      ``compute_local_uncond_signal``: views, chunks
   undo       ``undo_step``: micro_steps
   unet       ``signals.unet_step`` (pad, ControlNet, UNet, crop): rows, h
-             and w of the padded input, controlnet
+             and w of the padded input, controlnet, graph (how the UNet
+             forward ran: ``"replay"`` from a CUDA graph, ``"capture"``
+             into one, or ``"eager"``; ``models/unet_graphs.py``)
   decode     the decode of all B images: route, peak_bytes
 
 ``preamble``, ``denoise`` and ``decode`` begin and end at the clock reads

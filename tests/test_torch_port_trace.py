@@ -26,7 +26,8 @@ from elasticdiffusion_tpu_torch.utils import trace
 
 T, RS, H, W = 3, 1, 32, 48
 PHASES = ("preamble", "denoise", "decode")
-KEYS = {"steps", "views", "unet_view_forwards", "denoise_seconds",
+KEYS = {"steps", "views", "unet_view_forwards", "unet_graph_replays",
+        "unet_graph_captures", "denoise_seconds",
         "preamble_seconds", "decode_seconds", "decode_route"}
 
 

@@ -8,13 +8,17 @@ the benchmark's (``portbench/run.py``: the cell's weights from the seed,
 the port's bundle through its converter, one 2-step warm-up image); every
 window is ``run.py``'s closed loop of ``--seconds``. Then:
 
-1. a window with the tracer off: ``image_s`` and the allocator's peak over
-   the window (``peak_mem_gib``);
+1. a window with the tracer off: ``image_s``, the allocator's peak over
+   the window (``peak_mem_gib``) and its peak reserved bytes, and each
+   image's ``unet_graph_replays`` and ``unet_graph_captures`` (beside the
+   warm-up image's captures);
 2. a window under ``torch.profiler`` with ``run.py``'s ranges (the window,
    each image, the ``layer:`` ranges of ``portbench/trace.py``) and the
    tracer set: ``portbench/spans.py``'s readings beside the breakdown's
    ``idle_gaps``, launches and host milliseconds of each ``unet`` span by
-   its label, the launch calls against the device's ops, and the shared
+   its label and by its label and ``graph`` attribute (replayed, captured
+   or eager), each image's ``unet`` spans by that attribute, the launch
+   calls against the device's ops, and the shared
    clock: how far each ``layer:ModelBundle.apply_unet`` range starts
    after its ``unet`` span starts and ends before it ends;
 3. ``--pairs`` windows with the tracer set and as many with it off, in
@@ -43,18 +47,34 @@ def _median(xs):
 
 
 def _by_label(events, unets, by_id):
-    """Per label of the unet spans: calls, launches (min, max, mean) and
-    the host's milliseconds in the span (its enqueue: the span holds no
-    synchronisation), median and max."""
+    """Per label of the unet spans, and per label and ``graph`` attribute
+    (``direction>unet[16]/replay``; a port without CUDA graphs records
+    none): calls, launches (min, max, mean) and the host's milliseconds in
+    the span (its enqueue: the span holds no synchronisation), median and
+    max."""
     from portbench import spans
     out = {}
     for s, n in zip(unets, spans.launch_counts(events, unets)):
-        out.setdefault(spans.label(s, by_id.get(s.parent)), []).append(
-            (n, (s.t1_ns - s.t0_ns) / 1e6))
+        name = spans.label(s, by_id.get(s.parent))
+        for k in (name, f"{name}/{s.attrs['graph']}") if "graph" in s.attrs else (name,):
+            out.setdefault(k, []).append((n, (s.t1_ns - s.t0_ns) / 1e6))
     return {k: {"calls": len(v), "min": min(n for n, _ in v),
                 "max": max(n for n, _ in v), "mean": sum(n for n, _ in v) / len(v),
                 "host_ms_median": _median([ms for _, ms in v]),
                 "host_ms_max": max(ms for _, ms in v)} for k, v in out.items()}
+
+
+def _graph_calls(spans_, by_id):
+    """Per image of a traced window, in order: its unet spans by their
+    ``graph`` attribute (``replay``, ``capture``, ``eager``; ``none`` on a
+    port without the attribute)."""
+    per = {}
+    for s in spans_:
+        if s.name == "unet":
+            kinds = per.setdefault(s.image, {})
+            g = s.attrs.get("graph", "none")
+            kinds[g] = kinds.get(g, 0) + 1
+    return [per[k] for k in sorted(per)]
 
 
 def _runtime_calls(events, win):
@@ -118,6 +138,8 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
     del weights
     program.generate(pipe, trf, min(2, steps), next(traffic_mod.requests(trf, seed, 1)))
     setup_s = time.time() - t0
+    graphs = getattr(pipe.bundle, "unet_graphs", None)
+    warmup_captures = graphs.captures if graphs is not None else None
     reqs = traffic_mod.requests(trf, seed)
     plain = lambda _: contextlib.nullcontext()
 
@@ -131,15 +153,23 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
         finally:
             ptrace.tracer = None
         peak = torch.cuda.max_memory_allocated() if cuda else 0
+        reserved = torch.cuda.max_memory_reserved() if cuda else 0
         return {"image_s": secs / len(images), "images": len(images),
-                "peak_bytes": peak, "spans": tracer.spans if on else None,
-                "fwd": [img["metrics"]["unet_view_forwards"] for img in images]}
+                "peak_bytes": peak, "reserved_bytes": reserved,
+                "spans": tracer.spans if on else None,
+                "fwd": [img["metrics"]["unet_view_forwards"] for img in images],
+                "graph": [(img["metrics"].get("unet_graph_replays"),
+                           img["metrics"].get("unet_graph_captures"))
+                          for img in images]}
 
     a = window(False)
     out = {"cell": cell.name, "seed": seed, "seconds": seconds, "setup_s": setup_s,
+           "warmup_captures": warmup_captures,
            "window_a": {"image_s": a["image_s"], "images": a["images"],
                         "peak_mem_gib": a["peak_bytes"] / 2 ** 30,
-                        "unet_view_forwards": a["fwd"]}}
+                        "max_reserved_gib": a["reserved_bytes"] / 2 ** 30,
+                        "unet_view_forwards": a["fwd"],
+                        "unet_graph_replays_captures": a["graph"]}}
 
     unwrap = tr.wrap_layers()
     prof = profile(activities=[ProfilerActivity.CPU]
@@ -168,6 +198,7 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
         "apply_unet_idle_s": traced.idle_by_host.get("ModelBundle.apply_unet"),
         "idle_gaps": traced.breakdown()["idle_gaps"],
         "launches_by_label": _by_label(events, unets, by_id),
+        "unet_calls_by_graph": _graph_calls(tracer.spans, by_id),
         "runtime_calls": _runtime_calls(events, spans.window_and_busy(events)[0]),
         "clock": _clock(events, unets)}
     del events, prof, tracer, more
