@@ -17,9 +17,13 @@ steps of that image and the decode:
 - ``decode``: the reference's decode of the program's final latent.
 
 A step's number is ||program's output - float32 reference's|| over
-||bf16 reference's - float32 reference's||: the program's error in units of
-what rounding the inputs of every product to bfloat16 moves that same step
-from that same state. How far one rounding moves a guided step depends on
+||unit reference's - float32 reference's||: the program's error in units of
+what the precision just below the reference moves that same step from
+that same state. Where the configuration serves its UNet in bfloat16, the
+unit reference rounds the inputs of every product to bfloat16 where the
+configuration states bfloat16; where it serves its UNet in float32 (the
+CLI's ``--fp32``), it runs TF32 products where the configuration states
+float32. How far one rounding moves a guided step depends on
 the random weights (the guidance amplifies the difference of two nearly
 equal predictions by 10, and that difference's share varies from seed to
 seed), so the plain ratio ||error|| / ||step|| varied 3.7-fold over seeds
@@ -28,7 +32,12 @@ decode's number is ||program's image - reference's|| / ||reference's||.
 
 The control is the reference in the program's place one precision step
 down (``models.Precision``): float8 where the configuration states
-bfloat16, TF32 where it states float32.
+bfloat16, TF32 where it states float32. For a float32 UNet the control is
+the unit reference itself, and its steps read 1.
+
+With a ControlNet the reference runs it before every UNet forward, on the
+request's condition image (``traffic.condition_image``, drawn again from
+the image's seed).
 """
 
 from __future__ import annotations
@@ -42,9 +51,12 @@ import torch
 
 from .reference import models as M
 from .reference.elastic import Models, Request
+from .traffic import condition_image
 
 NUMBERS = ("first_step", "later_step", "decode")
-MODELS = ("unet", "text_encoder", "vae_decode", "vae_encode")
+# the models whose precision a configuration's ``dtypes`` states; a
+# ControlNet's only where it has one
+MODELS = ("unet", "text_encoder", "vae_decode", "vae_encode", "controlnet")
 
 
 def checked_steps(steps: int, image_seed: int) -> Dict[str, int]:
@@ -59,13 +71,16 @@ def sample_index(seed: int, n: int) -> int:
 
 
 def precisions(cfg: dict, mode: str) -> Dict[str, M.Precision]:
-    """'fp32' everywhere (the reference); 'bf16': bf16 rounding where the
-    configuration states bfloat16; 'control': one step below what it
-    states for each model (float8 for bfloat16, TF32 for float32)."""
+    """'fp32' everywhere (the reference); 'unit': bf16 rounding where the
+    configuration states bfloat16, and TF32 where it states float32 if its
+    UNet is float32; 'control': one step below what it states for each
+    model (float8 for bfloat16, TF32 for float32)."""
+    dt = cfg["dtypes"]
+    unit32 = "tf32" if dt["unet"] == "float32" else "fp32"
     below = {"control": {"bfloat16": "fp8", "float32": "tf32"},
-             "bf16": {"bfloat16": "bf16", "float32": "fp32"},
+             "unit": {"bfloat16": "bf16", "float32": unit32},
              "fp32": {"bfloat16": "fp32", "float32": "fp32"}}[mode]
-    return {k: M.Precision(below[cfg["dtypes"][k]]) for k in MODELS}
+    return {k: M.Precision(below[dt[k]]) for k in MODELS if k in dt}
 
 
 @torch.no_grad()
@@ -77,7 +92,8 @@ def reference_outputs(cfg: dict, traffic: dict, steps: int, weights: dict,
     `record` (its seed, prompts and step latents)."""
     models = Models(cfg, weights, device, precisions(cfg, mode))
     req = Request(models, traffic, steps, record["seed"], record["prompt"],
-                  record["negative"])
+                  record["negative"], condition_image(traffic, record["seed"], device),
+                  traffic.get("controlnet_conditioning_scale", 1.0))
     prog = torch.from_numpy(record["latents"]).to(device)
     lat0 = req.initial_latent()
     wanted = {i: name for name, i in checked_steps(steps, record["seed"]).items()}
@@ -101,29 +117,29 @@ def _norm(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def readings(got_latents: Dict[str, torch.Tensor], got_image: torch.Tensor,
-             ref: dict, ref16: dict) -> Dict[str, float]:
+             ref: dict, unit: dict) -> Dict[str, float]:
     """The numbers of `got` (the program's, or the control's outputs, by
     number) against the float32 reference `ref`, the steps' in units of the
-    bf16 reference `ref16`'s distance from it."""
+    unit reference `unit`'s distance from it."""
     out = {}
     for name, (_, _, want) in ref["steps"].items():
         out[name] = _norm(got_latents[name].to(want.device), want) \
-            / _norm(ref16["steps"][name][2], want)
+            / _norm(unit["steps"][name][2], want)
     img = ref["image"]
     out["decode"] = _norm(got_image.to(img.device), img) / float(img.double().norm())
     return out
 
 
-def program_readings(record: dict, ref: dict, ref16: dict) -> Dict[str, float]:
+def program_readings(record: dict, ref: dict, unit: dict) -> Dict[str, float]:
     dev = ref["image"].device
     lat = torch.from_numpy(record["latents"])
     return readings({name: lat[i] for name, (i, _, _) in ref["steps"].items()},
-                    torch.from_numpy(np.asarray(record["image"])).to(dev), ref, ref16)
+                    torch.from_numpy(np.asarray(record["image"])).to(dev), ref, unit)
 
 
-def control_readings(control: dict, ref: dict, ref16: dict) -> Dict[str, float]:
+def control_readings(control: dict, ref: dict, unit: dict) -> Dict[str, float]:
     return readings({name: out for name, (_, _, out) in control["steps"].items()},
-                    control["image"], ref, ref16)
+                    control["image"], ref, unit)
 
 
 def judge(values: Dict[str, float], limits: Dict[str, float]) -> bool:

@@ -6,7 +6,8 @@ precision step below the configuration's, at the same states).
     python3 portbench/control.py --workload <cell> --seeds 1,2,3
 
 For each seed: the cell's weights from the seed, one image of the cell's
-traffic (the window's first request) through the program, then the
+traffic (the window's first request) through the program, built as a run
+builds it (``program.build_pipe``: the configuration's runtime), then the
 reference and the control at the checked steps (step 0 and the later step
 that the image's seed draws, as a run's check draws it) and the decode.
 One JSON line a seed. Not run by the benchmark's own runs.
@@ -31,7 +32,8 @@ def readings(cell, seed: int, device: str = "cuda") -> dict:
     cfg, trf, steps = cell.config, cell.traffic, cell.steps
     pipe = program.build_pipe(cfg, wts.make_weights(cfg, seed, device), device)
     req = next(traffic_mod.requests(trf, seed))
-    record = {**req, **program.generate(pipe, trf, steps, req)}
+    cond = traffic_mod.condition_image(trf, req["seed"], device)
+    record = {**req, **program.generate(pipe, trf, steps, req, None, cond)}
     del pipe
     gc.collect()
     if torch.device(device).type == "cuda":
@@ -39,10 +41,10 @@ def readings(cell, seed: int, device: str = "cuda") -> dict:
     weights = wts.make_weights(cfg, seed, device)
     out = lambda mode, decode=True: check.reference_outputs(
         cfg, trf, steps, weights, record, device, mode=mode, decode=decode)
-    ref, ref16, ctl = out("fp32"), out("bf16", False), out("control")
+    ref, unit, ctl = out("fp32"), out("unit", False), out("control")
     return {"seed": seed, "steps": check.checked_steps(steps, record["seed"]),
-            "program": check.program_readings(record, ref, ref16),
-            "control": check.control_readings(ctl, ref, ref16)}
+            "program": check.program_readings(record, ref, unit),
+            "control": check.control_readings(ctl, ref, unit)}
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,6 @@
-"""The benchmark's frozen cost model: FLOPs of a UNet forward and of a VAE
-decode, the UNet's attention calls, and the H100's published peaks.
+"""The benchmark's frozen cost model: FLOPs of a UNet forward, of a
+ControlNet forward and of a VAE decode, their attention calls, and the
+H100's published peaks.
 
 The counts are a frozen copy of the program's ``utils/flops.py`` (matrix work
 only: convolutions, dense layers and the two attention products, at 2 FLOPs
@@ -13,7 +14,11 @@ from typing import Dict, List, NamedTuple
 
 # NVIDIA's data sheet, H100 SXM, dense, at the full 700 W
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
 HBM_BYTES_PER_S = 3.35e12
+# the fastest float32-exact product known on the card: three TF32 passes
+# (hi x hi, hi x lo, lo x hi), the program's fp32 attention body's method
+FP32_3XTF32_FLOPS = TF32_FLOPS / 3
 # the program's attention kernel takes non-causal calls of >= 256 queries;
 # smaller ones (SD 2.x's 8 x 8 mid block) run as plain library ops
 FLASH_MIN_SEQ = 256
@@ -41,9 +46,12 @@ class AttnCall(NamedTuple):
     count: int
 
 
-def _walk(cfg: dict, h: int, w: int, ctx_len: int = 77):
+def _walk(cfg: dict, h: int, w: int, ctx_len: int = 77, trunk: bool = False):
     """(flops per row, attention calls per row) of one UNet forward at a
-    latent of h x w, as ``utils/flops.py`` walks it."""
+    latent of h x w, as ``utils/flops.py`` walks it. With `trunk`, of the
+    part that a ControlNet copies (conv_in, embeddings, down path, mid
+    block) and its 1x1 zero convolutions, one on each skip and one on the
+    mid block's output."""
     bo, n, depth, heads, attn = _lists(cfg)
     temb = 4 * bo[0]
     ctx_dim = cfg["cross_attention_dim"]
@@ -106,6 +114,10 @@ def _walk(cfg: dict, h: int, w: int, ctx_len: int = 77):
     resnet(h, w, bo[-1], bo[-1])
     transformer(h, w, bo[-1], depth[-1], heads[-1])
     resnet(h, w, bo[-1], bo[-1])
+    if trunk:
+        for sc, hh, ww in skips + [(bo[-1], h, w)]:
+            conv(hh, ww, sc, sc, 1)
+        return flops, calls
     for i in reversed(range(n)):
         for _ in range(cfg["layers_per_block"] + 1):
             sc, h, w = skips.pop()
@@ -131,16 +143,45 @@ def unet_attention_calls(cfg: dict, h: int, w: int) -> List[AttnCall]:
     return [c for c in _walk(cfg, h, w)[1] if c.sq >= FLASH_MIN_SEQ]
 
 
-def attention_bound_seconds(calls: List[AttnCall], bytes_per_el: int = 2) -> float:
+def controlnet_forward_flops(cfg: dict, h: int, w: int) -> int:
+    """Matrix FLOPs of one ControlNet forward of one batch row at a latent
+    of h x w: its UNet trunk and zero convolutions, and the condition's
+    embedding at the pixels (a 3x3 conv, per width a 3x3 conv and a stride-2
+    one, and a 3x3 conv to the UNet's first width)."""
+    ch = list(cfg["conditioning_embedding_out_channels"])
+    f = 2 ** (len(ch) - 1)
+    hh, ww = h * f, w * f
+    flops = 2 * hh * ww * cfg.get("conditioning_channels", 3) * ch[0] * 9
+    for a, b in zip(ch, ch[1:]):
+        flops += 2 * hh * ww * a * a * 9
+        hh, ww = hh // 2, ww // 2
+        flops += 2 * hh * ww * a * b * 9
+    flops += 2 * hh * ww * ch[-1] * cfg["block_out_channels"][0] * 9
+    return flops + _walk(cfg, h, w, trunk=True)[0]
+
+
+def controlnet_attention_calls(cfg: dict, h: int, w: int) -> List[AttnCall]:
+    """The attention calls of one ControlNet forward row that the program's
+    attention kernel takes (>= FLASH_MIN_SEQ queries)."""
+    return [c for c in _walk(cfg, h, w, trunk=True)[1] if c.sq >= FLASH_MIN_SEQ]
+
+
+def attention_bound_seconds(calls: List[AttnCall], bytes_per_el: int = 2,
+                            flops_per_s: float = BF16_FLOPS) -> float:
     """Least time of the calls on one H100: for each, the larger of its
-    operations (QK^T and PV, 4 Sq Sk C) over the bf16 peak and its bytes
-    (Q, K, V read once, O written once) over HBM's rate."""
+    operations (QK^T and PV, 4 Sq Sk C) over `flops_per_s` (the bf16 peak;
+    for float32, ``FP32_3XTF32_FLOPS``) and its bytes (Q, K, V read once, O
+    written once, `bytes_per_el` each) over HBM's rate."""
     total = 0.0
     for c in calls:
         ops = 4 * c.sq * c.sk * c.channels
         nbytes = bytes_per_el * c.channels * (2 * c.sq + 2 * c.sk)
-        total += c.count * max(ops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S)
+        total += c.count * max(ops / flops_per_s, nbytes / HBM_BYTES_PER_S)
     return total
+
+
+# a served dtype -> (bytes an element, the attention's operation rate)
+ATTENTION_RATES = {"bfloat16": (2, BF16_FLOPS), "float32": (4, FP32_3XTF32_FLOPS)}
 
 
 def vae_decoder_flops(cfg: dict, lat_h: int, lat_w: int) -> int:
@@ -172,18 +213,26 @@ def vae_decoder_flops(cfg: dict, lat_h: int, lat_w: int) -> int:
 
 def image_costs(cfg: dict, traffic: dict, steps: int, views: int) -> Dict[str, float]:
     """Per image of a cell: UNet rows run, model FLOPs (UNet rows at the
-    native latent plus one VAE decode; text encoders and background encodes
-    left out) and the attention bound seconds."""
+    native latent, with a ControlNet a ControlNet row for each, plus one VAE
+    decode; text encoders and background encodes left out) and the
+    attention bound seconds, each model's calls at the rate of the dtype
+    that the configuration serves it in."""
     rs = int(traffic["resampling_steps"])
     repaint = bool(traffic.get("repaint_sampling", True)) and rs > 0
     rows = steps * (2 * (rs + 1) + views) + ((steps - 1) * (2 + views) if repaint else 0)
     s = cfg["unet"]["sample_size"]
     vsf = 2 ** (len(cfg["vae"]["block_out_channels"]) - 1)
     lat_h, lat_w = traffic["height"] // vsf, traffic["width"] // vsf
+    row_flops = unet_forward_flops(cfg["unet"], s, s)
+    bound = attention_bound_seconds(unet_attention_calls(cfg["unet"], s, s),
+                                    *ATTENTION_RATES[cfg["dtypes"]["unet"]])
+    if "controlnet" in cfg:
+        cn = cfg["controlnet"]
+        row_flops += controlnet_forward_flops(cn, s, s)
+        bound += attention_bound_seconds(controlnet_attention_calls(cn, s, s),
+                                         *ATTENTION_RATES[cfg["dtypes"]["controlnet"]])
     return {
         "unet_rows": rows,
-        "flops": rows * unet_forward_flops(cfg["unet"], s, s)
-        + vae_decoder_flops(cfg["vae"], lat_h, lat_w),
-        "attn_bound_s": rows * attention_bound_seconds(
-            unet_attention_calls(cfg["unet"], s, s)),
+        "flops": rows * row_flops + vae_decoder_flops(cfg["vae"], lat_h, lat_w),
+        "attn_bound_s": rows * bound,
     }

@@ -8,15 +8,23 @@ A frozen copy of the program's plain code (``core/pipeline.py``,
 cannot move its own yardstick. What it keeps of the program is the
 algorithm and its random draws, seed for seed and call for call: the same
 ``torch.Generator`` seeds, draw shapes and draw order, so that on the same
-device both draw the same numbers. What it leaves out: the mesh, the
-ControlNet, scripted noise, checkpoints, the image log. Every UNet input
-stays float32.
+device both draw the same numbers. What it leaves out: the mesh, scripted
+noise, checkpoints, the image log. Every UNet input stays float32.
 
 One step (``Request.step``): the global direction from 2(rs+1) CFG forwards
 at the downsampled size (randomised resampling, background pads), the local
 unconditional score from V patch views, a DDIM update, with repaint the
 re-noising and a second estimate (2 + V forwards), and the reduced-resolution
 guidance while its weight is over 10.
+
+With a ControlNet (a configuration with a ``controlnet`` block, a request
+with a condition image), every UNet forward first runs the ControlNet on
+the same rows and adds its residuals. The condition is resized to the
+downsampled size in pixels, as the program's ``_context`` does; the
+direction zero-pads it by the background pads in pixels and lays it out as
+its latents (``signals.approximate_latent_direction``); the local signal
+upsamples it to the full latent's pixels and crops it per view
+(``signals.view_conditions``); repaint's second estimate takes the same.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import models as M
 from .tokenizer import tokenize
@@ -415,7 +424,8 @@ def rrg_weights(n: int, stop_t: float, init: float, cosine_scale: float,
 class Models:
     """The reference models of one configuration on a device, computing as
     the precisions of `precs` say: {'unet', 'text_encoder', 'vae_decode',
-    'vae_encode'} -> ``models.Precision``."""
+    'vae_encode', and with a ControlNet 'controlnet'} ->
+    ``models.Precision``."""
 
     def __init__(self, cfg: dict, sd: Dict[str, dict], device,
                  precs: Dict[str, M.Precision], rows: int = 4):
@@ -432,6 +442,12 @@ class Models:
         self.text = [M.materialise(M.build("clip", c), sd[name], device,
                                    self.text_prec)
                      for name, c in text_encoders(cfg)]
+        self.controlnet = None
+        if "controlnet" in cfg:
+            self.cn_prec = precs["controlnet"]
+            self.controlnet = M.materialise(
+                M.build("controlnet", cfg["controlnet"]), sd["controlnet"],
+                device, self.cn_prec)
 
     @torch.no_grad()
     def text_embeds(self, prompts: List[str]):
@@ -449,10 +465,26 @@ class Models:
         return outs[0][0], outs[0][0]
 
     @torch.no_grad()
-    def unet_fn(self, x, t, ctx, add_text=None, add_tid=None):
-        with self.prec:
-            return M.unet_rows(self.unet, x, t, ctx, self.prec, add_text,
-                               add_tid, self.rows)
+    def unet_fn(self, x, t, ctx, add_text=None, add_tid=None, cond=None,
+                scale: float = 1.0):
+        """The UNet over a batch; with a condition `cond` (one a row), each
+        block of rows first through the ControlNet."""
+        if cond is None:
+            with self.prec:
+                return M.unet_rows(self.unet, x, t, ctx, self.prec, add_text,
+                                   add_tid, self.rows)
+        outs = []
+        for lo in range(0, x.shape[0], self.rows):
+            sl = slice(lo, lo + self.rows)
+            at = None if add_text is None else add_text[sl]
+            tid = None if add_tid is None else add_tid[sl]
+            with self.cn_prec:
+                down, mid = self.controlnet(x[sl], t, ctx[sl], cond[sl], scale,
+                                            self.cn_prec, at, tid)
+            with self.prec:
+                outs.append(self.unet(x[sl], t, ctx[sl], self.prec, at, tid,
+                                      down, mid))
+        return torch.cat(outs)
 
     @torch.no_grad()
     def encode_sample(self, img, noise):
@@ -479,10 +511,12 @@ def text_encoders(cfg: dict):
 class Request:
     """One generate_image call, plainly: its plans, text conditioning,
     schedule and generators, built as the program builds them from the
-    same seed, prompt and parameters; ``step`` is one denoise step."""
+    same seed, prompt and parameters; ``step`` is one denoise step.
+    `condition` (1, 3, h, w) in [0, 1] is the ControlNet's condition image,
+    taken at `scale` (the traffic's ``controlnet_conditioning_scale``)."""
 
     def __init__(self, models: Models, traffic: dict, steps: int, seed: int,
-                 prompt: str, negative: str):
+                 prompt: str, negative: str, condition=None, scale: float = 1.0):
         cfg = models.cfg
         dev = models.device
         self.m, self.dev = models, dev
@@ -496,6 +530,10 @@ class Request:
         self.views = build_view_plan(self.lat_h, self.lat_w, sample, dev)
         self.down_pad = PadSpec(self.plan.out_h, self.plan.out_w, m, m)
         self.view_pad = PadSpec(*self.views.out_shape, m, m)
+        self.vsf, self.cond, self.cn_scale = vsf, None, float(scale)
+        if condition is not None:
+            self.cond = nearest_resize(condition.to(dev, torch.float32),
+                                       (self.plan.out_h * vsf, self.plan.out_w * vsf))
         self.g = float(traffic["guidance_scale"])
         self.rs = int(traffic["resampling_steps"])
         self.drop_p = 1 - float(traffic["new_p"])
@@ -553,9 +591,32 @@ class Request:
             tables[side] = torch.stack(rows)
         return tables
 
-    def _unet(self, x, t, pad: PadSpec, bgs, ctx, add_text, tid):
-        eps = self.m.unet_fn(pad_with_background(x, pad, bgs), t, ctx, add_text, tid)
+    def _unet(self, x, t, pad: PadSpec, bgs, ctx, add_text, tid, cond=None):
+        eps = self.m.unet_fn(pad_with_background(x, pad, bgs), t, ctx, add_text,
+                             tid, cond, self.cn_scale)
         return crop_from_padding(eps, pad)
+
+    def _direction_conditions(self, n: int):
+        """The condition zero-padded by the direction's background pads in
+        pixels, once for each of the `n` rows of its UNet call."""
+        if self.cond is None:
+            return None
+        f = self.vsf
+        l, r, t, b = self.down_pad.pads
+        return F.pad(self.cond, (l * f, r * f, t * f, b * f)).repeat(n, 1, 1, 1)
+
+    def _view_conditions(self):
+        """The condition of every view: nearest-upsampled to the full
+        latent's pixels, cropped with the view plan's rows and columns in
+        pixels (each latent index i giving pixels i f .. i f + f - 1)."""
+        if self.cond is None:
+            return None
+        v, f = self.views, self.vsf
+        up = nearest_resize(self.cond[:1], (self.lat_h * f, self.lat_w * f))
+        sub = torch.arange(f, device=up.device)
+        rows = (v.rows[:, :, None] * f + sub).reshape(v.num_views, -1)
+        cols = (v.cols[:, :, None] * f + sub).reshape(v.num_views, -1)
+        return up[0][:, rows[:, :, None], cols[:, None, :]].permute(1, 0, 2, 3)
 
     def _direction(self, lat, t, bgs, n_sub):
         """(direction (1, C, H, W), last substep's downsampled latent,
@@ -575,7 +636,8 @@ class Request:
             au, ac = self.add_text[:B], self.add_text[B:]
             ate = torch.cat([au.repeat(n_sub, 1), ac.repeat(n_sub, 1)])
             tid = self.tid.expand(2 * n_sub * B, 6)
-        eps = self._unet(x2, t, self.down_pad, bgs, ctx, ate, tid).float()
+        eps = self._unet(x2, t, self.down_pad, bgs, ctx, ate, tid,
+                         self._direction_conditions(2 * n_sub * B)).float()
         eu = eps[:n_sub * B].reshape(n_sub, B, C, dh, dw)
         ec = eps[n_sub * B:].reshape(n_sub, B, C, dh, dw)
         dirs = ec - eu
@@ -598,7 +660,8 @@ class Request:
         if self.upool is not None:
             pooled = self.upool.repeat(V, 1)
             tid = self.tid.expand(V, 6)
-        preds = self._unet(vb, t, self.view_pad, bgs, ctx, pooled, tid)
+        preds = self._unet(vb, t, self.view_pad, bgs, ctx, pooled, tid,
+                           self._view_conditions())
         preds = preds.reshape(V, lat.shape[0], *preds.shape[1:]).float()
         return preds[v.owner_view, :, :, v.owner_y, v.owner_x].permute(2, 3, 0, 1)
 

@@ -1,9 +1,9 @@
 """Plain float32 PyTorch models of Stable Diffusion: the UNet
-(``UNet2DConditionModel``), the VAE (``AutoencoderKL``) and the CLIP text
-encoders (``CLIPTextModel`` / ``CLIPTextModelWithProjection``), written from
-the published architectures with the diffusers and transformers parameter
-names, so that one state dict in those names feeds both this reference and
-the program under test.
+(``UNet2DConditionModel``), the ControlNet (``ControlNetModel``), the VAE
+(``AutoencoderKL``) and the CLIP text encoders (``CLIPTextModel`` /
+``CLIPTextModelWithProjection``), written from the published architectures
+with the diffusers and transformers parameter names, so that one state dict
+in those names feeds both this reference and the program under test.
 
 No kernel, no cache, no batching trick: every product is ``F.linear``,
 ``F.conv2d`` or ``torch.matmul``, every norm ``F.group_norm`` /
@@ -12,7 +12,9 @@ same modules compute the benchmark's control: ``Precision("fp8")`` rounds
 the inputs of every product (weights once, activations at each call,
 attention's q, k, v and probabilities) to float8 e4m3 with a per-tensor
 scale, the step below bfloat16; ``Precision("tf32")`` lets the products run
-in TF32, the step below float32. ``Precision("bf16")`` rounds the same
+in TF32, the step below float32 (on a CUDA device the tensor cores' TF32;
+on the CPU, which has none, the same inputs rounded to TF32's 10-bit
+mantissa). ``Precision("bf16")`` rounds the same
 inputs to bfloat16: the scale of what bf16 rounding alone moves a result.
 
 This package imports nothing of the program (``elasticdiffusion_tpu_torch``)
@@ -37,6 +39,16 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(x.dtype)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest even, on
+    the CPU; on a CUDA device x unchanged (the TF32 flags round there)."""
+    if x.device.type != "cpu" or x.dtype != torch.float32:
+        return x
+    i = x.contiguous().view(torch.int32)
+    i = (i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF
+    return i.view(torch.float32).view_as(x)
+
+
 def fp8_round(x: torch.Tensor) -> torch.Tensor:
     """x rounded to float8 e4m3 with one scale for the whole tensor (its
     largest magnitude maps to 448), returned in x's dtype."""
@@ -50,11 +62,12 @@ class Precision:
     'fp32': float32 with TF32 off (the reference). 'fp8' / 'bf16': the
     inputs of every product rounded by ``fp8_round`` / ``bf16_round`` (fp8:
     the control of a bfloat16 model). 'tf32': TF32 products in matmuls and
-    cuDNN convolutions (the control of a float32 model). Use as a context
+    cuDNN convolutions (the control of a float32 model), emulated on the
+    CPU by ``tf32_round``. Use as a context
     manager around a forward: it sets and restores the TF32 flags."""
 
     MODES = ("fp32", "fp8", "bf16", "tf32")
-    ROUND = {"fp8": fp8_round, "bf16": bf16_round}
+    ROUND = {"fp8": fp8_round, "bf16": bf16_round, "tf32": tf32_round}
 
     def __init__(self, mode: str = "fp32"):
         if mode not in self.MODES:
@@ -68,7 +81,8 @@ class Precision:
     @torch.no_grad()
     def prepare(self, model: nn.Module) -> nn.Module:
         """Round the model's matrices and convolution kernels in place
-        ('fp8', 'bf16'); embeddings, biases and norm parameters stay."""
+        ('fp8', 'bf16'; 'tf32' on the CPU); embeddings, biases and norm
+        parameters stay."""
         rnd = self.ROUND.get(self.mode)
         if rnd:
             for name, p in model.named_parameters():
@@ -319,6 +333,98 @@ class Block(nn.Module):
     """A named container, so that parameter names follow diffusers."""
 
 
+def _arch(cfg: dict):
+    """(block widths, attention per level, transformer depths, heads) of a
+    diffusers UNet or ControlNet config."""
+    bo = list(cfg["block_out_channels"])
+    n = len(bo)
+    has_attn = [t.startswith("CrossAttn") for t in cfg["down_block_types"]]
+    depth = cfg.get("transformer_layers_per_block", 1)
+    depth = [depth] * n if isinstance(depth, int) else list(depth)
+    heads = cfg["attention_head_dim"]
+    heads = [heads] * n if isinstance(heads, int) else list(heads)
+    return bo, has_attn, depth, heads
+
+
+def _t2d(cfg: dict, i: int) -> "Transformer2D":
+    bo, _, depth, heads = _arch(cfg)
+    return Transformer2D(bo[i], heads[i], cfg["cross_attention_dim"], depth[i],
+                         cfg.get("use_linear_projection", False))
+
+
+def _trunk(m: nn.Module, cfg: dict) -> list:
+    """Registers on `m` the part of the UNet that a ControlNet copies, in
+    the UNet's order: conv_in, time_embedding (and SDXL's add_embedding),
+    down_blocks, mid_block. Returns the channels of the down path's skips."""
+    bo, has_attn, _, _ = _arch(cfg)
+    n = len(bo)
+    temb = 4 * bo[0]
+    lpb = cfg["layers_per_block"]
+    m.conv_in = Conv(cfg["in_channels"], bo[0])
+    m.time_embedding = TimestepEmbedding(bo[0], temb)
+    if cfg.get("addition_embed_type") == "text_time":
+        m.add_embedding = TimestepEmbedding(
+            cfg["projection_class_embeddings_input_dim"], temb)
+    m.down_blocks = nn.ModuleList()
+    skips, ch = [bo[0]], bo[0]
+    for i in range(n):
+        blk = Block()
+        blk.resnets = nn.ModuleList()
+        if has_attn[i]:
+            blk.attentions = nn.ModuleList()
+        for _ in range(lpb):
+            blk.resnets.append(Resnet(ch, bo[i], temb, 1e-5))
+            if has_attn[i]:
+                blk.attentions.append(_t2d(cfg, i))
+            ch = bo[i]
+            skips.append(ch)
+        if i < n - 1:
+            blk.downsamplers = nn.ModuleList([Downsample(ch)])
+            skips.append(ch)
+        m.down_blocks.append(blk)
+    m.mid_block = Block()
+    m.mid_block.resnets = nn.ModuleList(
+        [Resnet(ch, ch, temb, 1e-5), Resnet(ch, ch, temb, 1e-5)])
+    m.mid_block.attentions = nn.ModuleList([_t2d(cfg, n - 1)])
+    return skips
+
+
+def _embed(m: nn.Module, B: int, t, prec: Precision, add_text, add_tid, device):
+    """The time embedding (plus SDXL's text_time one) of a batch of B."""
+    cfg = m.cfg
+    flip, shift = cfg.get("flip_sin_to_cos", True), cfg.get("freq_shift", 0)
+    tt = torch.full((B,), float(t), device=device)
+    emb = m.time_embedding(
+        timestep_embedding(tt, m.conv_in.weight.shape[0], flip, shift), prec)
+    if hasattr(m, "add_embedding"):
+        tid = timestep_embedding(add_tid.reshape(-1),
+                                 cfg["addition_time_embed_dim"], flip,
+                                 shift).reshape(B, -1)
+        emb = emb + m.add_embedding(torch.cat([add_text, tid], -1), prec)
+    return emb
+
+
+def _unet_down(m: nn.Module, h, emb, ctx, prec: Precision):
+    """The down path from conv_in's output: (its output, every skip)."""
+    res = [h]
+    for blk in m.down_blocks:
+        for j, r in enumerate(blk.resnets):
+            h = r(h, prec, emb)
+            if hasattr(blk, "attentions"):
+                h = blk.attentions[j](h, ctx, prec)
+            res.append(h)
+        if hasattr(blk, "downsamplers"):
+            h = blk.downsamplers[0](h, prec)
+            res.append(h)
+    return h, res
+
+
+def _unet_mid(m: nn.Module, h, emb, ctx, prec: Precision):
+    h = m.mid_block.resnets[0](h, prec, emb)
+    h = m.mid_block.attentions[0](h, ctx, prec)
+    return m.mid_block.resnets[1](h, prec, emb)
+
+
 class UNet(nn.Module):
     """``UNet2DConditionModel`` from a diffusers ``unet/config.json``
     (``cfg``): SD 1.x / 2.x and SDXL ('text_time' conditioning)."""
@@ -326,47 +432,11 @@ class UNet(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
         self.cfg = cfg
-        bo = list(cfg["block_out_channels"])
+        bo, has_attn, _, _ = _arch(cfg)
         n = len(bo)
         temb = 4 * bo[0]
-        has_attn = [t.startswith("CrossAttn") for t in cfg["down_block_types"]]
-        depth = cfg.get("transformer_layers_per_block", 1)
-        depth = [depth] * n if isinstance(depth, int) else list(depth)
-        heads = cfg["attention_head_dim"]
-        heads = [heads] * n if isinstance(heads, int) else list(heads)
-        linear = cfg.get("use_linear_projection", False)
-        ctx_dim = cfg["cross_attention_dim"]
-        lpb = cfg["layers_per_block"]
-        self.conv_in = Conv(cfg["in_channels"], bo[0])
-        self.time_embedding = TimestepEmbedding(bo[0], temb)
-        if cfg.get("addition_embed_type") == "text_time":
-            self.add_embedding = TimestepEmbedding(
-                cfg["projection_class_embeddings_input_dim"], temb)
-        t2d = lambda i: Transformer2D(bo[i], heads[i], ctx_dim, depth[i], linear)
-
-        self.down_blocks = nn.ModuleList()
-        skips, ch = [bo[0]], bo[0]
-        for i in range(n):
-            blk = Block()
-            blk.resnets = nn.ModuleList()
-            if has_attn[i]:
-                blk.attentions = nn.ModuleList()
-            for _ in range(lpb):
-                blk.resnets.append(Resnet(ch, bo[i], temb, 1e-5))
-                if has_attn[i]:
-                    blk.attentions.append(t2d(i))
-                ch = bo[i]
-                skips.append(ch)
-            if i < n - 1:
-                blk.downsamplers = nn.ModuleList([Downsample(ch)])
-                skips.append(ch)
-            self.down_blocks.append(blk)
-
-        self.mid_block = Block()
-        self.mid_block.resnets = nn.ModuleList(
-            [Resnet(ch, ch, temb, 1e-5), Resnet(ch, ch, temb, 1e-5)])
-        self.mid_block.attentions = nn.ModuleList([t2d(n - 1)])
-
+        skips = _trunk(self, cfg)
+        ch = bo[-1]
         self.up_blocks = nn.ModuleList()
         for k in range(n):
             i = n - 1 - k
@@ -374,10 +444,10 @@ class UNet(nn.Module):
             blk.resnets = nn.ModuleList()
             if has_attn[i]:
                 blk.attentions = nn.ModuleList()
-            for _ in range(lpb + 1):
+            for _ in range(cfg["layers_per_block"] + 1):
                 blk.resnets.append(Resnet(ch + skips.pop(), bo[i], temb, 1e-5))
                 if has_attn[i]:
-                    blk.attentions.append(t2d(i))
+                    blk.attentions.append(_t2d(cfg, i))
                 ch = bo[i]
             if i > 0:
                 blk.upsamplers = nn.ModuleList([Upsample(ch)])
@@ -385,33 +455,19 @@ class UNet(nn.Module):
         self.conv_norm_out = GroupNorm(bo[0], 1e-5)
         self.conv_out = Conv(bo[0], cfg["out_channels"])
 
-    def forward(self, x, t, ctx, prec: Precision, add_text=None, add_tid=None):
-        """x (B, 4, h, w), t a float, ctx (B, 77, D) -> eps (B, 4, h, w)."""
-        cfg = self.cfg
-        B = x.shape[0]
-        flip, shift = cfg.get("flip_sin_to_cos", True), cfg.get("freq_shift", 0)
-        tt = torch.full((B,), float(t), device=x.device)
-        emb = self.time_embedding(
-            timestep_embedding(tt, self.conv_in.weight.shape[0], flip, shift), prec)
-        if hasattr(self, "add_embedding"):
-            tid = timestep_embedding(add_tid.reshape(-1),
-                                     cfg["addition_time_embed_dim"], flip,
-                                     shift).reshape(B, -1)
-            emb = emb + self.add_embedding(torch.cat([add_text, tid], -1), prec)
-        h = self.conv_in(x, prec)
-        res = [h]
-        for blk in self.down_blocks:
-            for j, r in enumerate(blk.resnets):
-                h = r(h, prec, emb)
-                if hasattr(blk, "attentions"):
-                    h = blk.attentions[j](h, ctx, prec)
-                res.append(h)
-            if hasattr(blk, "downsamplers"):
-                h = blk.downsamplers[0](h, prec)
-                res.append(h)
-        h = self.mid_block.resnets[0](h, prec, emb)
-        h = self.mid_block.attentions[0](h, ctx, prec)
-        h = self.mid_block.resnets[1](h, prec, emb)
+    def forward(self, x, t, ctx, prec: Precision, add_text=None, add_tid=None,
+                down_res=None, mid_res=None):
+        """x (B, 4, h, w), t a float, ctx (B, 77, D) -> eps (B, 4, h, w).
+        A ControlNet's residuals, where given, are added to the skips after
+        the whole down path (`down_res`, one a skip) and to the mid block's
+        output (`mid_res`), as diffusers adds them."""
+        emb = _embed(self, x.shape[0], t, prec, add_text, add_tid, x.device)
+        h, res = _unet_down(self, self.conv_in(x, prec), emb, ctx, prec)
+        if down_res is not None:
+            res = [r + a for r, a in zip(res, down_res, strict=True)]
+        h = _unet_mid(self, h, emb, ctx, prec)
+        if mid_res is not None:
+            h = h + mid_res
         for blk in self.up_blocks:
             for j, r in enumerate(blk.resnets):
                 h = r(torch.cat([h, res.pop()], dim=1), prec, emb)
@@ -420,6 +476,54 @@ class UNet(nn.Module):
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h, prec)
         return self.conv_out(F.silu(self.conv_norm_out(h)), prec)
+
+
+# ---------------------------------------------------------------------------
+# ControlNetModel
+# ---------------------------------------------------------------------------
+
+
+class ControlNet(nn.Module):
+    """diffusers ``ControlNetModel`` from its ``config.json`` (``cfg``): a
+    copy of the UNet's conv_in, embeddings, down path and mid block; the
+    condition's embedding (a 3x3 conv, then per level a 3x3 conv and a
+    stride-2 one, SiLU after each, and a last 3x3 conv to the UNet's first
+    width), added to conv_in's output; a 1x1 "zero" convolution on each skip
+    and on the mid block's output, each times the conditioning scale.
+    RGB channel order, no global pooling, no guess mode."""
+
+    def __init__(self, cfg: dict):
+        super().__init__()
+        self.cfg = cfg
+        bo = list(cfg["block_out_channels"])
+        skips = _trunk(self, cfg)
+        ch = list(cfg["conditioning_embedding_out_channels"])
+        emb = Block()
+        emb.conv_in = Conv(cfg.get("conditioning_channels", 3), ch[0])
+        emb.blocks = nn.ModuleList()
+        for i in range(len(ch) - 1):
+            emb.blocks.append(Conv(ch[i], ch[i]))
+            emb.blocks.append(Conv(ch[i], ch[i + 1], stride=2))
+        emb.conv_out = Conv(ch[-1], bo[0])
+        self.controlnet_cond_embedding = emb
+        self.controlnet_down_blocks = nn.ModuleList(
+            [Conv(c, c, 1, padding=0) for c in skips])
+        self.controlnet_mid_block = Conv(bo[-1], bo[-1], 1, padding=0)
+
+    def forward(self, x, t, ctx, cond, scale: float, prec: Precision,
+                add_text=None, add_tid=None):
+        """x (B, 4, h, w), cond (B, 3, h * f, w * f) in [0, 1] -> (the
+        down residuals, one a skip, the mid residual)."""
+        emb = _embed(self, x.shape[0], t, prec, add_text, add_tid, x.device)
+        ce = self.controlnet_cond_embedding
+        c = F.silu(ce.conv_in(cond, prec))
+        for blk in ce.blocks:
+            c = F.silu(blk(c, prec))
+        h = self.conv_in(x, prec) + ce.conv_out(c, prec)
+        h, res = _unet_down(self, h, emb, ctx, prec)
+        h = _unet_mid(self, h, emb, ctx, prec)
+        down = [scale * z(r, prec) for z, r in zip(self.controlnet_down_blocks, res)]
+        return down, scale * self.controlnet_mid_block(h, prec)
 
 
 # ---------------------------------------------------------------------------
@@ -613,12 +717,14 @@ def has_projection(cfg: dict) -> bool:
 
 
 def build(kind: str, cfg: dict) -> nn.Module:
-    """A model of `kind` ('unet' | 'vae' | 'clip') with its parameters on
+    """A model of `kind` ('unet' | 'controlnet' | 'vae' | 'clip') with its parameters on
     the meta device: its ``state_dict()`` names and shapes are the
     checkpoint's."""
     with torch.device("meta"):
         if kind == "unet":
             return UNet(cfg)
+        if kind == "controlnet":
+            return ControlNet(cfg)
         if kind == "vae":
             return VAE(cfg)
         if kind == "clip":

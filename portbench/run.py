@@ -5,11 +5,13 @@
 From the root of a checkout, on a machine with the cell's GPUs. Set-up
 builds the port's kernels (or finds them in ``build/kernels`` of the
 checkout), makes the cell's weights on the device from the seed, loads them
-into the port's ``ElasticDiffusion`` and makes one short warm-up image of
-the cell's size. The window is a closed loop of one user: images of the
-cell's traffic mix, one at a time, each starting when the last has ended,
-as long as fewer than ``--seconds`` have passed; it ends when the last
-image ends. ``--trace 1`` reports the per-layer metrics instead of the
+into the port's ``ElasticDiffusion`` (at the configuration's runtime,
+``program.runtime_config``, and with its ControlNet where it has one) and
+makes one short warm-up image of the cell's size. The window is a closed
+loop of one user: images of the cell's traffic mix (with a ControlNet
+condition drawn from each image's seed before its clock starts), one at a
+time, each starting when the last has ended, as long as fewer than
+``--seconds`` have passed; it ends when the last image ends. ``--trace 1`` reports the per-layer metrics instead of the
 end-to-end ones: those of the program's spans and counters from the same
 untraced window, the trace's from a second window of ``--seconds`` under
 ``torch.profiler`` after it (the profiler slows the host).
@@ -78,14 +80,18 @@ def _window(pipe, cell, reqs, seconds: float, cuda: bool, mark) -> tuple:
     from portbench import host, program
     from portbench import trace as tr
 
+    from portbench import traffic as traffic_mod
+
     images = []
     w0 = time.time()
     while time.time() - w0 < seconds:
         req = next(reqs)
+        cond = traffic_mod.condition_image(cell.traffic, req["seed"],
+                                           "cuda" if cuda else "cpu")
         clock, probe = program.StepClock(cuda), host.Probe()
         t_img = time.time()
         with mark(tr.IMAGE):
-            out = program.generate(pipe, cell.traffic, cell.steps, req, clock)
+            out = program.generate(pipe, cell.traffic, cell.steps, req, clock, cond)
         images.append({**req, **out, "wall_s": time.time() - t_img,
                        "steps_s": clock.durations(), "host": probe.read()})
     return images, time.time() - w0
@@ -128,7 +134,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     pipe = program.build_pipe(cfg, weights, device)
     del weights
     lap("bundle")
-    program.generate(pipe, trf, min(2, steps), next(traffic_mod.requests(trf, seed, 1)))
+    warm = next(traffic_mod.requests(trf, seed, 1))
+    program.generate(pipe, trf, min(2, steps), warm, None,
+                     traffic_mod.condition_image(trf, warm["seed"], device))
     lap("warmup")
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -170,10 +178,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     record = images[check.sample_index(seed, len(images))]
     weights = wts.make_weights(cfg, seed, device)
     ref = check.reference_outputs(cfg, trf, steps, weights, record, device)
-    ref16 = check.reference_outputs(cfg, trf, steps, weights, record, device,
-                                    mode="bf16", decode=False)
+    unit = check.reference_outputs(cfg, trf, steps, weights, record, device,
+                                   mode="unit", decode=False)
     del weights
-    values = check.program_readings(record, ref, ref16)
+    values = check.program_readings(record, ref, unit)
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
            "count": cell.chips, "memory_peak_bytes": peak}

@@ -35,3 +35,16 @@ def test_control_fails_at_the_cells_size(cuda, name):
         r = readings(cell, seed, cuda)
         assert check.judge(r["program"], cell.limits), r
         assert not check.judge(r["control"], cell.limits), r
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_the_tf32_control_fails_the_fp32_toy_limits(seed):
+    """A float32 configuration: the sound program (float32 on the CPU)
+    reads far under the limits, its control (TF32, the unit itself) reads 1
+    and fails them."""
+    cell = toy.cell("fp32")
+    r = readings(cell, seed, "cpu")
+    assert check.judge(r["program"], cell.limits), r
+    assert not check.judge(r["control"], cell.limits), r
+    for k in check.NUMBERS[:2]:
+        assert r["control"][k] == pytest.approx(1.0) and r["program"][k] < 0.1, r

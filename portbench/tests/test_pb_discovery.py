@@ -35,7 +35,7 @@ def test_attention_patterns_are_read_from_their_directory():
     spec = mod.spec_from_file_location("ar", HERE / "metrics" / "attn_roofline.py")
     m = mod.module_from_spec(spec)
     spec.loader.exec_module(m)
-    assert "flash_wgmma_bf16<" in m.patterns()
+    assert "flash_wgmma_bf16<" in m.patterns() and "flash_mma_f32x3<" in m.patterns()
 
 
 def test_names_units_and_keys_keep_the_contract():

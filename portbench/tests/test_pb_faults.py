@@ -54,3 +54,13 @@ def test_fault_is_not_correct(monkeypatch, fault):
     fault(monkeypatch)
     r = _run()
     assert not r["correct"], r["checks"]
+
+
+@pytest.mark.parametrize("fault", [_step_unchanged, _half_batch, _image_altered])
+def test_fault_is_not_correct_in_fp32(monkeypatch, fault):
+    """The same faults under a float32 configuration, whose steps are in
+    TF32 units."""
+    assert _run("fp32")["correct"]
+    fault(monkeypatch)
+    r = _run("fp32")
+    assert not r["correct"], r["checks"]

@@ -40,10 +40,10 @@ def test_reference_follows_the_port_in_fp32(monkeypatch, kind, later):
                                          compute_dtype=torch.float32))
     ref = check.reference_outputs(cell.config, cell.traffic, cell.steps,
                                   wts.make_weights(cell.config, 5, "cpu"), rec, "cpu")
-    ref16 = check.reference_outputs(cell.config, cell.traffic, cell.steps,
-                                    wts.make_weights(cell.config, 5, "cpu"), rec,
-                                    "cpu", mode="bf16", decode=False)
-    got = check.program_readings(rec, ref, ref16)
+    unit = check.reference_outputs(cell.config, cell.traffic, cell.steps,
+                                   wts.make_weights(cell.config, 5, "cpu"), rec,
+                                   "cpu", mode="unit", decode=False)
+    got = check.program_readings(rec, ref, unit)
     # steps in units of bf16 rounding's effect (a sound bf16 program: ~2)
     assert got["first_step"] < 0.01 and got["later_step"] < 0.01, got
     assert got["decode"] < 1e-5, got
@@ -84,3 +84,72 @@ def test_checkpoint_names_are_the_ports_at_full_size(cell):
         theirs = model.state_dict()
         assert set(mine) == set(theirs), name
         assert all(tuple(mine[k].shape) == tuple(theirs[k].shape) for k in mine), name
+
+
+@pytest.mark.parametrize("name", ["sdxl", "sd21"])
+def test_the_runtime_of_the_bf16_configurations_is_the_default(name):
+    from elasticdiffusion_tpu_torch.configs import RuntimeConfig
+    cfg = load_cell({"sdxl": "sdxl-2048sq", "sd21": "sd21-1024sq"}[name]).config
+    assert program.runtime_config(cfg) == RuntimeConfig()
+
+
+def test_the_fp32_configuration_runs_as_the_clis_fp32():
+    from elasticdiffusion_tpu_torch.configs import RuntimeConfig
+    cfg = load_cell("sd21-1024sq-fp32").config
+    rt = program.runtime_config(cfg)
+    assert rt == RuntimeConfig(param_dtype=torch.float32, compute_dtype=torch.float32)
+    assert program.runtime_config({**cfg, "runtime": {"conv_impl": "kernel"}}).conv_impl == "kernel"
+    for dtypes in ({**cfg["dtypes"], "text_encoder": "bfloat16"},
+                   {**cfg["dtypes"], "vae_decode": "bfloat16"}):
+        with pytest.raises(ValueError):
+            program.runtime_config({**cfg, "dtypes": dtypes})
+    with pytest.raises(ValueError):
+        program.runtime_config({**cfg, "runtime": {"use_kernels": "off"}})
+
+
+def _with_controlnet(cfg):
+    return {**cfg, "controlnet": {**cfg["unet"], "kind": "canny",
+                                  "conditioning_embedding_out_channels": [96, 256]},
+            "dtypes": {**cfg["dtypes"], "controlnet": "bfloat16"}}
+
+
+@pytest.mark.parametrize("kind", ["sd2", "xl"])
+def test_weights_are_the_same_bits_with_a_controlnet_after_them(kind):
+    cfg = toy.cell(kind).config
+    a, b = wts.make_weights(cfg, 9, "cpu"), wts.make_weights(_with_controlnet(cfg), 9, "cpu")
+    assert list(b) == list(a) + ["controlnet"]
+    for name in a:
+        assert list(a[name]) == list(b[name])
+        assert all(torch.equal(a[name][k], b[name][k]) for k in a[name]), name
+
+
+@pytest.mark.parametrize("cell", ["sdxl-2048sq", "sd21-1024sq"])
+def test_a_controlnet_is_drawn_after_the_published_models(cell):
+    """At full size (on the meta device): the other models are drawn in the
+    same order and shapes with a ControlNet block as without, so from the
+    same sub-seeds and offsets."""
+    cfg = load_cell(cell).config
+    a = wts.checkpoint_models(cfg)
+    b = wts.checkpoint_models({**cfg, "controlnet": {**cfg["unet"], **toy.CANNY_SDXL}})
+    assert list(b) == list(a) + ["controlnet"]
+    for name in a:
+        sa, sb = a[name].state_dict(), b[name].state_dict()
+        assert [(k, v.shape) for k, v in sa.items()] == [(k, v.shape) for k, v in sb.items()]
+
+
+def test_the_fp32_unit_is_tf32_and_not_zero():
+    """A float32 UNet's steps are in units of TF32 (on the CPU, inputs
+    rounded to 10 mantissa bits), which moves a step; bf16 configurations
+    keep bf16 rounding where they state bfloat16 and float32 elsewhere."""
+    fp32 = toy.cell("fp32")
+    assert {p.mode for p in check.precisions(fp32.config, "unit").values()} == {"tf32"}
+    xl = check.precisions(toy.cell("xl").config, "unit")
+    assert xl["unet"].mode == "bf16" and xl["vae_decode"].mode == "fp32"
+    rec = _record(fp32, 6)
+    w = wts.make_weights(fp32.config, 6, "cpu")
+    out = lambda mode: check.reference_outputs(fp32.config, fp32.traffic, fp32.steps, w, rec,
+                                               "cpu", mode=mode, decode=False)["steps"]
+    ref, unit = out("fp32"), out("unit")
+    for name in check.NUMBERS[:2]:
+        want = ref[name][2]
+        assert float((unit[name][2] - want).norm()) > 1e-4 * float(want.norm())

@@ -1,6 +1,8 @@
 """Toy configurations of the two families (SDXL-like with two text
 encoders, text_time conditioning and background pads; SD 2-like with one),
-at widths a CPU test can run, and a cell built from them."""
+the SDXL-like one with a ControlNet, and the SD 2-like one served in
+float32 throughout (the CLI's --fp32), at widths a CPU test can run, and a
+cell built from each."""
 
 from __future__ import annotations
 
@@ -58,12 +60,52 @@ def traffic(height: int, width: int, tiled: bool = False) -> dict:
             "prompt_words": [3, 8], "words": "words.txt"}
 
 
+def canny_config() -> dict:
+    """xl_config with a ControlNet at the UNet's widths, as the port builds
+    it: the conditioning embedding's widths are the two of the port's four
+    that the toy VAE's scale factor of 2 takes."""
+    cfg = xl_config()
+    cfg["name"] = "toy_xl_canny"
+    cfg["dtypes"]["controlnet"] = "bfloat16"
+    cfg["controlnet"] = {**cfg["unet"], "_class_name": "ControlNetModel",
+                         "kind": "canny", "conditioning_channels": 3,
+                         "conditioning_embedding_out_channels": [96, 256],
+                         "controlnet_conditioning_channel_order": "rgb",
+                         "global_pool_conditions": False}
+    return cfg
+
+
+def fp32_config() -> dict:
+    cfg = sd2_config()
+    cfg["name"] = "toy_sd2_fp32"
+    cfg["dtypes"] = {k: "float32" for k in cfg["dtypes"]}
+    return cfg
+
+
+# the published diffusers/controlnet-canny-sdxl-1.0 config.json beyond the
+# UNet's keys, for tests at SDXL's widths
+CANNY_SDXL = {"_class_name": "ControlNetModel", "kind": "canny",
+              "conditioning_channels": 3,
+              "conditioning_embedding_out_channels": [16, 32, 96, 256],
+              "controlnet_conditioning_channel_order": "rgb",
+              "global_pool_conditions": False}
 LIMITS = {"first_step": 6.0, "later_step": 6.0, "decode": 0.02}
+# the float32 toy's steps are in units of TF32 rounding's effect, which
+# its control (TF32 itself) reads as 1; its decode is float32
+FP32_LIMITS = {"first_step": 0.25, "later_step": 0.25, "decode": 1e-4}
+CONDITION = {"condition": {"kind": "edges", "shapes": [3, 6], "line_px": 2},
+             "controlnet_conditioning_scale": 0.5}
 
 
 def cell(kind: str = "sd2", limits=None) -> Cell:
     """sd2: 64 x 64 pixels (16 views, no pads); xl: 32 x 64 (4 views, the
-    global call padded with backgrounds), tiled decoder."""
+    global call padded with backgrounds), tiled decoder; canny: xl with a
+    ControlNet and an edge map; fp32: sd2 in float32."""
     if kind == "sd2":
         return Cell("toy-sd2", sd2_config(), traffic(64, 64), 1, limits or LIMITS)
+    if kind == "fp32":
+        return Cell("toy-fp32", fp32_config(), traffic(64, 64), 1, limits or FP32_LIMITS)
+    if kind == "canny":
+        return Cell("toy-canny", canny_config(), {**traffic(32, 64, tiled=True), **CONDITION},
+                    1, limits or LIMITS)
     return Cell("toy-xl", xl_config(), traffic(32, 64, tiled=True), 1, limits or LIMITS)

@@ -23,16 +23,19 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def checkpoint_models(cfg: dict) -> Dict[str, torch.nn.Module]:
     """{checkpoint name: reference model on the meta device}, in the order
-    the weights are drawn."""
+    the weights are drawn: a ControlNet last, so that the other models'
+    weights are the same bits with it or without it."""
     out = {"unet": M.build("unet", cfg["unet"]), "vae": M.build("vae", cfg["vae"])}
     for name, c in text_encoders(cfg):
         out[name] = M.build("clip", c)
+    if "controlnet" in cfg:
+        out["controlnet"] = M.build("controlnet", cfg["controlnet"])
     return out
 
 
 def served_dtype(cfg: dict, name: str) -> torch.dtype:
     """The dtype a model's weights are served in (the config's
-    ``dtypes``): the VAE's fp32 masters, the others' bfloat16."""
+    ``dtypes``): the VAE's fp32 masters; the others' as the config states."""
     key = "text_encoder" if name.startswith("text_encoder") else name
     return DTYPES[cfg["dtypes"][key]]
 
