@@ -510,7 +510,11 @@ class ElasticDiffusion:
         ``ModelBundle.apply_unet``; with a mesh, this rank's rows, padding
         included), ``unet_graph_replays`` and ``unet_graph_captures`` (the
         step loop's UNet calls replayed from a CUDA graph and captured into
-        one, ``models/unet_graphs.py``; 0 on the CPU), ``preamble_seconds``, ``denoise_seconds`` and
+        one, ``models/unet_graphs.py``; 0 on the CPU), with a ControlNet
+        ``controlnet_view_forwards`` (its rows in the step loop, counted at
+        ``ModelBundle.apply_controlnet``) and ``controlnet_device_seconds``
+        (the summed stream time of those calls, ``CallClock``; the host
+        clock on the CPU), ``preamble_seconds``, ``denoise_seconds`` and
         ``decode_seconds`` (host clock, each phase ended by a
         synchronisation on the GPU) and ``decode_route`` (``plain``,
         ``tiled`` or ``halo:`` and the branch ``halo_decode`` took). With a
@@ -584,6 +588,9 @@ class ElasticDiffusion:
             denoise = trace.begin("denoise", t_start, peak=dev)
             rows0 = b.unet_rows
             replays0, captures0 = graphs.replays, graphs.captures
+            if b.controlnet is not None:
+                cn_rows0 = b.controlnet_rows
+                b.controlnet_clock.start()
             for i in steps_iter:
                 inp, use_repaint = sched.inputs(i)
                 if scripted_noise is not None:
@@ -616,6 +623,10 @@ class ElasticDiffusion:
                 "denoise_seconds": (t_end - t_start) / 1e9,
                 "preamble_seconds": (t_start - t_fn0) / 1e9,
             }
+            if b.controlnet is not None:
+                self.last_metrics.update(
+                    controlnet_view_forwards=b.controlnet_rows - cn_rows0,
+                    controlnet_device_seconds=b.controlnet_clock.read())
 
             image_log: Dict[str, Any] = {}
             if self.verbose:

@@ -31,7 +31,9 @@ Structure, as in the JAX package:
   - with a tracer set (``utils/trace.py``), ``unet_step``, the pick chain,
     the local signal and ``undo_step`` record their spans; the ``unet``
     span's ``graph`` attribute says whether the UNet forward was replayed
-    from a CUDA graph, captured, or ran eagerly
+    from a CUDA graph, captured, or ran eagerly. With a ControlNet, its
+    forward has a ``controlnet`` span inside the ``unet`` span, and the
+    building of each estimator's condition a ``cond`` span
 """
 
 from __future__ import annotations
@@ -72,8 +74,9 @@ def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
     controlnet_cond: (B', 3, H', W') at the padded input's pixels. The
     trace's ``unet`` span; its ``graph`` attribute says how the UNet ran
     (``"replay"``, ``"capture"`` or ``"eager"``, ``models/unet_graphs.py``).
-    Only the UNet is graphed: the pads, the ControlNet and the crop run
-    eagerly around it."""
+    Only the UNet is graphed: the pads, the ControlNet (its own
+    ``controlnet`` span inside the ``unet`` span) and the crop run eagerly
+    around it."""
     with trace.span("unet", rows=x.shape[0],
                     controlnet=controlnet_cond is not None) as sp:
         x_in = pad_with_background(x, pad_spec, step_bgs)
@@ -83,9 +86,11 @@ def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
             kwargs = {"added_text_embeds": add_text_embeds,
                       "added_time_ids": add_time_ids}
         if controlnet_cond is not None:
-            down, mid = bundle.apply_controlnet(
-                x_in, t, context, controlnet_cond,
-                conditioning_scale=controlnet_scale, **kwargs)
+            with trace.span("controlnet", rows=x_in.shape[0], h=x_in.shape[2],
+                            w=x_in.shape[3], scale=controlnet_scale):
+                down, mid = bundle.apply_controlnet(
+                    x_in, t, context, controlnet_cond,
+                    conditioning_scale=controlnet_scale, **kwargs)
             kwargs["down_block_residuals"] = down
             kwargs["mid_block_residual"] = mid
         eps = bundle.apply_unet(x_in, t, context, **kwargs)
@@ -210,8 +215,10 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
         # pads in pixels, then laid out as the latents are
         vsf = bundle.vae_scale_factor
         l, r, tp, bp = pad_spec.pads
-        low = F.pad(controlnet_cond, (l * vsf, r * vsf, tp * vsf, bp * vsf))
-        cn = low.repeat(2 * n_sub, 1, 1, 1)
+        with trace.span("cond", kind="global") as sp:
+            low = F.pad(controlnet_cond, (l * vsf, r * vsf, tp * vsf, bp * vsf))
+            cn = low.repeat(2 * n_sub, 1, 1, 1)
+            sp.set(h=cn.shape[2], w=cn.shape[3])
     run = _unet_rows(bundle, t, pad_spec, step_bgs, controlnet_scale)
     eps = sharded_call(run, mesh, x2, ctx, ate, tid, cn).float()
     eps_u = eps[:n_sub * B].reshape(n_sub, B, C, dh, dw)
@@ -280,8 +287,12 @@ def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
         pooled = None if uncond_pooled is None else uncond_pooled.repeat(V, 1)
         tid = None if add_time_ids is None else \
             add_time_ids.expand(V * B, *add_time_ids.shape[1:])
-        cn = None if controlnet_cond is None else view_conditions(
-            controlnet_cond, plan, B, bundle.vae_scale_factor)
+        cn = None
+        if controlnet_cond is not None:
+            with trace.span("cond", kind="views") as sp:
+                cn = view_conditions(controlnet_cond, plan, B,
+                                     bundle.vae_scale_factor)
+                sp.set(h=cn.shape[2], w=cn.shape[3])
 
         run = _unet_rows(bundle, t, pad_spec, step_bgs, controlnet_scale)
         preds = []

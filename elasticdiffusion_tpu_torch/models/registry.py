@@ -24,9 +24,10 @@ from __future__ import annotations
 
 import copy
 import math
+import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -70,6 +71,54 @@ class _fp32_convs:
         torch.backends.cudnn.allow_tf32 = self.prev
 
 
+class CallClock:
+    """The device seconds of the calls it is put around, summed from
+    ``start()`` to ``read()``; outside that period it times nothing. On a
+    CUDA device a call is timed from an event recorded on the current
+    stream just before it to one recorded just after it: stream time, so
+    the device's waits for the call's launches count. The event pairs come
+    from a pool that grows to the most calls one period holds and is reused
+    after; nothing synchronises, so ``read()`` after a synchronisation. On
+    the CPU, which has run a call when it returns, the host clock."""
+
+    def __init__(self):
+        self._pairs: List[tuple] = []
+        self._used = 0
+        self._host_s = 0.0
+        self._on = False
+
+    def start(self) -> None:
+        self._used, self._host_s, self._on = 0, 0.0, True
+
+    def begin(self, device: torch.device):
+        """A tick for ``end``, or None outside a period."""
+        if not self._on:
+            return None
+        if device.type != "cuda":
+            return time.perf_counter()
+        if self._used == len(self._pairs):
+            self._pairs.append((torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True)))
+        start, done = self._pairs[self._used]
+        self._used += 1
+        stream = torch.cuda.current_stream(device)
+        start.record(stream)
+        return done, stream
+
+    def end(self, tick) -> None:
+        if isinstance(tick, float):
+            self._host_s += time.perf_counter() - tick
+        elif tick is not None:
+            done, stream = tick
+            done.record(stream)
+
+    def read(self) -> float:
+        """The period's seconds; ends the period."""
+        self._on = False
+        return self._host_s + sum(a.elapsed_time(b) for a, b in
+                                  self._pairs[:self._used]) / 1e3
+
+
 @dataclass
 class ModelBundle:
     config: ModelBundleConfig
@@ -83,6 +132,11 @@ class ModelBundle:
     controlnet: Optional[ControlNet] = None
     # UNet rows run by ``apply_unet`` since the bundle was made
     unet_rows: int = 0
+    # ControlNet rows run by ``apply_controlnet`` since the bundle was made
+    controlnet_rows: int = 0
+    # the seconds of ``apply_controlnet``'s calls in a period the caller sets
+    controlnet_clock: CallClock = field(default_factory=CallClock, repr=False,
+                                        compare=False)
     # the UNet forward's CUDA graphs (``models/unet_graphs.py``)
     unet_graphs: UNetGraphs = field(default_factory=UNetGraphs, repr=False,
                                     compare=False)
@@ -125,15 +179,21 @@ class ModelBundle:
     def apply_controlnet(self, latent_nchw, t, context, condition_nchw,
                          conditioning_scale=1.0, added_text_embeds=None,
                          added_time_ids=None):
-        """(down residuals, mid residual) for ``apply_unet``."""
+        """(down residuals, mid residual) for ``apply_unet``. Counts its
+        rows (``controlnet_rows``) and times itself on ``controlnet_clock``;
+        always eager."""
         if self.controlnet is None:
             raise ValueError("the bundle has no ControlNet: load it with "
                              "controlnet_model=...")
+        self.controlnet_rows += latent_nchw.shape[0]
+        tick = self.controlnet_clock.begin(latent_nchw.device)
         with _fp32_convs():
-            return self.controlnet(latent_nchw, t, context, condition_nchw,
-                                   conditioning_scale=conditioning_scale,
-                                   added_text_embeds=added_text_embeds,
-                                   added_time_ids=added_time_ids)
+            out = self.controlnet(latent_nchw, t, context, condition_nchw,
+                                  conditioning_scale=conditioning_scale,
+                                  added_text_embeds=added_text_embeds,
+                                  added_time_ids=added_time_ids)
+        self.controlnet_clock.end(tick)
+        return out
 
     @property
     def fp32_decode(self) -> bool:

@@ -32,6 +32,11 @@ are kept in memory, in the order they began. ``generate_image`` records:
              and w of the padded input, controlnet, graph (how the UNet
              forward ran: ``"replay"`` from a CUDA graph, ``"capture"``
              into one, or ``"eager"``; ``models/unet_graphs.py``)
+  controlnet ``ModelBundle.apply_controlnet`` inside ``unet``: rows, h, w,
+             scale
+  cond       the ControlNet condition of an estimator's call: kind
+             (``"global"``, the direction's zero pad, or ``"views"``, the
+             local signal's ``view_conditions``), h and w of each row
   decode     the decode of all B images: route, peak_bytes
 
 ``preamble``, ``denoise`` and ``decode`` begin and end at the clock reads
@@ -50,7 +55,8 @@ who reads that counter across a ``generate_image`` call (a benchmark's
 window peak) reads only what followed the last reset.
 
 Cost while a tracer is set: two clock reads and one small object a span;
-an image of 8 steps with repaint, its views in one batch, has 96 spans.
+an image of 8 steps with repaint, its views in one batch, has 96 spans, and
+a ControlNet adds two a UNet call (``controlnet`` and ``cond``).
 """
 
 from __future__ import annotations

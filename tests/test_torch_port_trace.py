@@ -6,10 +6,13 @@ span. With one: the tree of one repaint run of T = 3 (every span under one
 image root, each inside its parent's interval, the estimators in each
 step), the phases on ``last_metrics``' own clock reads, Σ ``unet`` rows
 against the counted ``unet_view_forwards`` and the old formula, the decode
-routes, and the shared clock with ``torch.profiler``'s events.
+routes, and the shared clock with ``torch.profiler``'s events. With a
+ControlNet: its ``controlnet`` and ``cond`` spans and its counted rows and
+seconds; without one, none of them.
 """
 
 import functools
+import time
 
 import numpy as np
 import pytest
@@ -20,7 +23,8 @@ from toy_configs import toy_bundle_config
 from torch_port_common import TORCH_TOY_RUNTIME, port_bundle_config
 
 from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
-from elasticdiffusion_tpu_torch.models.registry import ModelBundle, load_bundle
+from elasticdiffusion_tpu_torch.models.registry import (CallClock, ModelBundle,
+                                                        load_bundle)
 from elasticdiffusion_tpu_torch.parallel import halo_decode as thd
 from elasticdiffusion_tpu_torch.utils import trace
 
@@ -61,6 +65,32 @@ def traced():
     trace.tracer = tr = trace.Tracer()
     try:
         pipe = _generate()
+    finally:
+        trace.tracer = None
+    return tr.spans, pipe.last_metrics
+
+
+@functools.lru_cache(maxsize=1)
+def _canny_bundle():
+    return load_bundle("toy", TORCH_TOY_RUNTIME,
+                       bundle_config=port_bundle_config(toy_bundle_config()),
+                       controlnet_model="canny", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def canny_traced():
+    """(spans, last_metrics) of one repaint run of 2 steps with a
+    ControlNet condition."""
+    pipe = ElasticDiffusion(bundle=_canny_bundle(), device="cpu")
+    pipe.seed_everything(3)
+    cond = (torch.rand(1, 3, 32, 32, generator=torch.Generator().manual_seed(5))
+            > 0.8).float()
+    trace.tracer = tr = trace.Tracer()
+    try:
+        pipe.generate_image("a cat", height=32, width=32, num_inference_steps=2,
+                            resampling_steps=RS, return_arrays=True,
+                            condition_image=cond,
+                            controlnet_conditioning_scale=0.5)
     finally:
         trace.tracer = None
     return tr.spans, pipe.last_metrics
@@ -251,3 +281,63 @@ def test_peak_bytes_reset_at_begin_and_read_at_end(monkeypatch, tracer):
     assert calls == [("reset", dev), ("read", dev)]
     denoise, step = tracer.spans
     assert denoise.attrs == {"peak_bytes": 1234} and step.attrs == {}
+
+
+def _controlnet_rows_are_the_unets(spans, m):
+    assert m["controlnet_view_forwards"] == m["unet_view_forwards"] > 0
+
+
+def _controlnet_seconds_lie_in_the_loop(spans, m):
+    assert 0 < m["controlnet_device_seconds"] <= m["denoise_seconds"]
+
+
+def _controlnet_spans_lie_in_unet_spans(spans, m):
+    by_id = {s.id: s for s in spans}
+    unets = [s for s in spans if s.name == "unet"]
+    nets = [s for s in spans if s.name == "controlnet"]
+    assert len(nets) == len(unets) > 0
+    for s in nets:
+        p = by_id[s.parent]
+        assert p.name == "unet" and p.t0_ns <= s.t0_ns <= s.t1_ns <= p.t1_ns
+        assert (s.attrs["rows"], s.attrs["h"], s.attrs["w"]) == \
+            (p.attrs["rows"], p.attrs["h"], p.attrs["w"])
+        assert s.attrs["scale"] == 0.5
+
+
+def _cond_spans_once_per_estimator_call(spans, m):
+    by_id = {s.id: s for s in spans}
+    conds = [s for s in spans if s.name == "cond"]
+    kinds = {"direction": "global", "local": "views"}
+    assert sorted(by_id[s.parent].name for s in conds) == sorted(
+        s.name for s in spans if s.name in kinds)
+    for s in conds:
+        assert s.attrs["kind"] == kinds[by_id[s.parent].name]
+        assert s.attrs["h"] > 0 and s.attrs["w"] > 0
+
+
+@pytest.mark.parametrize("check", [_controlnet_rows_are_the_unets,
+                                   _controlnet_seconds_lie_in_the_loop,
+                                   _controlnet_spans_lie_in_unet_spans,
+                                   _cond_spans_once_per_estimator_call])
+def test_a_controlnet_records_its_spans_and_counters(check, canny_traced):
+    check(*canny_traced)
+
+
+def test_no_controlnet_records_neither_key_nor_span(traced):
+    spans, m = traced
+    assert not {s.name for s in spans} & {"controlnet", "cond"}
+    assert set(m) == KEYS
+
+
+def test_the_call_clock_times_only_inside_a_period():
+    cpu, clock = torch.device("cpu"), CallClock()
+    assert clock.begin(cpu) is None
+    clock.end(None)
+    clock.start()
+    tick = clock.begin(cpu)
+    time.sleep(0.01)
+    clock.end(tick)
+    assert 0.01 <= clock.read() < 1.0
+    assert clock.begin(cpu) is None
+    clock.start()
+    assert clock.read() == 0.0

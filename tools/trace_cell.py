@@ -5,13 +5,15 @@ spans read, and what the tracer costs.
 
 From the root of a checkout, on a machine with the cell's GPU. Set-up is
 the benchmark's (``portbench/run.py``: the cell's weights from the seed,
-the port's bundle through its converter, one 2-step warm-up image); every
+the port's bundle through its converter, one 2-step warm-up image, with
+the cell's ControlNet condition where it has one); every
 window is ``run.py``'s closed loop of ``--seconds``. Then:
 
 1. a window with the tracer off: ``image_s``, the allocator's peak over
    the window (``peak_mem_gib``) and its peak reserved bytes, and each
    image's ``unet_graph_replays`` and ``unet_graph_captures`` (beside the
-   warm-up image's captures);
+   warm-up image's captures) and, with a ControlNet, its rows and
+   device seconds;
 2. a window under ``torch.profiler`` with ``run.py``'s ranges (the window,
    each image, the ``layer:`` ranges of ``portbench/trace.py``) and the
    tracer set: ``portbench/spans.py``'s readings beside the breakdown's
@@ -20,7 +22,10 @@ window is ``run.py``'s closed loop of ``--seconds``. Then:
    or eager), each image's ``unet`` spans by that attribute, the launch
    calls against the device's ops, and the shared
    clock: how far each ``layer:ModelBundle.apply_unet`` range starts
-   after its ``unet`` span starts and ends before it ends;
+   after its ``unet`` span starts and ends before it ends; with a
+   ControlNet, its ``controlnet`` and ``cond`` spans' idle seconds,
+   launches and host milliseconds (``idle_by_span`` names their idle
+   ``controlnet`` and ``cond``);
 3. ``--pairs`` windows with the tracer set and as many with it off, in
    turns (on, off, off, on, ...): ``image_s`` of each, and the largest
    ``preamble`` / ``denoise`` / ``decode`` peak of the windows with it set.
@@ -118,6 +123,29 @@ def _clock(events, unets):
             "end_before_span_end_us": stat(lag)}
 
 
+def _span_readings(events, spans_, names):
+    """Per span name of `names` (spans that do not nest in one another):
+    the window's spans, the device's idle seconds inside them, and the
+    launches starting inside them, over the spans; empty for names with
+    no span."""
+    from portbench import spans
+    win, busy = spans.window_and_busy(events)
+    gaps = spans.idle_gaps(win, busy)
+    starts = [g[0] for g in gaps]
+    out = {}
+    for name in names:
+        some = sorted((s for s in spans_ if s.name == name and s.t1_ns is not None
+                       and win[0] <= s.t0_ns <= win[1]), key=lambda s: s.t0_ns)
+        if some:
+            out[name] = {
+                "spans": len(some),
+                "idle_s": sum(spans._overlap(gaps, starts, s.t0_ns, s.t1_ns)
+                              for s in some) / 1e9,
+                "launches_per_span": sum(spans.launch_counts(events, some)) / len(some),
+                "host_ms_median": _median([(s.t1_ns - s.t0_ns) / 1e6 for s in some])}
+    return out
+
+
 def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -136,7 +164,9 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
     weights = wts.make_weights(cfg, seed, device)
     pipe = program.build_pipe(cfg, weights, device)
     del weights
-    program.generate(pipe, trf, min(2, steps), next(traffic_mod.requests(trf, seed, 1)))
+    warm = next(traffic_mod.requests(trf, seed, 1))
+    program.generate(pipe, trf, min(2, steps), warm, None,
+                     traffic_mod.condition_image(trf, warm["seed"], device))
     setup_s = time.time() - t0
     graphs = getattr(pipe.bundle, "unet_graphs", None)
     warmup_captures = graphs.captures if graphs is not None else None
@@ -158,6 +188,9 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
                 "peak_bytes": peak, "reserved_bytes": reserved,
                 "spans": tracer.spans if on else None,
                 "fwd": [img["metrics"]["unet_view_forwards"] for img in images],
+                "controlnet": [(img["metrics"].get("controlnet_view_forwards"),
+                                img["metrics"].get("controlnet_device_seconds"))
+                               for img in images],
                 "graph": [(img["metrics"].get("unet_graph_replays"),
                            img["metrics"].get("unet_graph_captures"))
                           for img in images]}
@@ -169,7 +202,8 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
                         "peak_mem_gib": a["peak_bytes"] / 2 ** 30,
                         "max_reserved_gib": a["reserved_bytes"] / 2 ** 30,
                         "unet_view_forwards": a["fwd"],
-                        "unet_graph_replays_captures": a["graph"]}}
+                        "unet_graph_replays_captures": a["graph"],
+                        "controlnet_rows_seconds": a["controlnet"]}}
 
     unwrap = tr.wrap_layers()
     prof = profile(activities=[ProfilerActivity.CPU]
@@ -200,7 +234,8 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
         "launches_by_label": _by_label(events, unets, by_id),
         "unet_calls_by_graph": _graph_calls(tracer.spans, by_id),
         "runtime_calls": _runtime_calls(events, spans.window_and_busy(events)[0]),
-        "clock": _clock(events, unets)}
+        "clock": _clock(events, unets),
+        "controlnet": _span_readings(events, tracer.spans, ("controlnet", "cond"))}
     del events, prof, tracer, more
 
     on, off, peaks = [], [], []
