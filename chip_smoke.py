@@ -66,7 +66,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
             forward of the new weights, and again of the old ones once
             they are back. Fails unless a replay counts the same wrapper
             launches and launch-log entries as an eager call of its key,
-            with every kernel the bundle runs among them
+            with every kernel the bundle runs among them. For sdxl_canny
+            also the ControlNet and the UNet as a pair of graphs
+            (apply_unet with a condition; `pair_rows` 16, one image
+            broadcast, 4 and 2 at 128x128): eager, capture, replay, each
+            and a replay at another timestep and condition equal to the
+            modules' eager forwards (max |d| 0); the UNet graph must read
+            the ControlNet graph's residuals where they lie and a replay
+            count an eager pair's kernels; launches, ms (the ControlNet
+            alone too), the static conditions' bytes
   requests  ElasticDiffusion.generate_image answers requests at full width
             with seeded random weights on seven paths, one bundle at a time:
             SDXL 1.0 and SD 1.5 with conv_impl='kernel', SD 2.1 with the
@@ -93,7 +101,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
             and the random draws of the two runs must
             be the same. A ControlNet path also fails when the RMS of the
             ControlNet's mid residual or first down residual is 0 at the
-            first step of its first request
+            first step of its first request, and unless some call replays
+            a pair and, right after each such call, the residuals its
+            ControlNet graph left in the pool are the ControlNet's eager
+            forward on the static inputs the call loaded (rel L2 within
+            PAIR_RESIDUAL_REL_L2): else a replay did not run the
+            ControlNet. (Checked after the request instead, they may hold
+            what a later call's graph wrote over them: the graphs share a
+            pool.) The ControlNet calls
+            that the conv3x3 count expects come from the bundle's own
+            counters, which a replay adds to whether or not it ran
   apps      on the sd15_depth bundle: the bundle written as a diffusers
             checkpoint directory (safetensors, its own dtypes) and the
             smoke's DPT-large as a transformers one, read back with
@@ -1113,6 +1130,7 @@ PATHS = (
     # shapes are the SD 1.5 UNet's down path).
     {"name": "sdxl_canny", "sd_version": "XL1.0", "conv_impl": "kernel",
      "latent": 128, "controlnet": "canny", "graph_rows": (2,),
+     "pair_rows": (16, 4, 2),
      "requests": ({"height": 1024, "width": 1536},)},
     {"name": "sd15_depth", "sd_version": "1.5", "conv_impl": "kernel",
      "controlnet": "depth", "requests": ({"height": 512, "width": 768},)},
@@ -1545,6 +1563,168 @@ def phase_graphs(bundle, path):
              f"by {max(worst, alias_diff, reload_diff, back_diff)}")
 
 
+def phase_graph_pairs(bundle, path):
+    """The ControlNet and the UNet as a pair of CUDA graphs
+    (``apply_unet`` with a condition) at the canny cell's keys, against the
+    modules' eager forwards (see the module docstring)."""
+    from elasticdiffusion_tpu_torch.models.registry import _fp32_convs
+    from elasticdiffusion_tpu_torch.models.unet_graphs import counted
+    graphs = bundle.unet_graphs
+    graphs.drop()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, f = path["latent"], bundle.vae_scale_factor
+    dt = bundle.runtime.compute_dtype
+    scale = 0.5
+    cases = {}
+    for rows in path["pair_rows"]:
+        lat, ctx, kw = unet_inputs(bundle, n, gen, rows)
+        # the direction's condition is one image broadcast, the views' not
+        one = rows == max(path["pair_rows"])
+        cond = torch.rand(1 if one else rows, 3, n * f, n * f, generator=gen,
+                          device="cuda").to(dt)
+        cases[rows] = (lat, ctx, kw, cond.expand(rows, *cond.shape[1:]))
+    read = []
+    hook = bundle.unet.register_forward_pre_hook(
+        lambda m, a, k: read.append([r.data_ptr() for r in
+                                     k.get("down_block_residuals") or []]),
+        with_kwargs=True)
+
+    def eager(rows, t=501.0, cond=None):
+        lat, ctx, kw, c = cases[rows]
+        with torch.no_grad(), _fp32_convs():
+            down, mid = bundle.controlnet(lat, t, ctx, c if cond is None else cond,
+                                          conditioning_scale=scale, **kw)
+            return bundle.unet(lat, t, ctx, down_block_residuals=down,
+                               mid_block_residual=mid, **kw)
+
+    def paired(rows, t=501.0, cond=None):
+        lat, ctx, kw, c = cases[rows]
+        return bundle.apply_unet(lat, t, ctx, controlnet_cond=c if cond is None
+                                 else cond, conditioning_scale=scale, **kw)
+
+    out = {"phase": "graph_pairs", "path": path["name"], "keys": {}}
+    worst, shared = 0.0, {}
+    mem0 = torch.cuda.memory_allocated()
+    try:
+        for rows in path["pair_rows"]:
+            want = eager(rows)
+            kinds, diffs = [], []
+            for _ in range(3):
+                n0 = len(read)
+                got = paired(rows)
+                kinds.append(graphs.last)
+                diffs.append((got.float() - want.float()).abs().max().item())
+                if graphs.last == "capture":
+                    key = next(k for k, g in graphs.graphs.items()
+                               if g.cn is not None and g.cn.residuals[1].shape[0] == rows)
+                    pair = graphs.graphs[key]
+                    shared[rows] = read[n0:] == [[r.data_ptr() for r in
+                                                   pair.cn.residuals[0]]]
+            if kinds != ["eager", "capture", "replay"]:
+                fail(f"{path['name']} pairs {rows} rows: calls ran {kinds}")
+            other = cases[rows][3].flip(0).contiguous() * 0.5
+            diffs.append((paired(rows, 261.0, other).float()
+                          - eager(rows, 261.0, other).float()).abs().max().item())
+            worst = max(worst, *diffs)
+            _, e = counted(lambda: eager(rows))
+            _, r = counted(lambda: paired(rows))
+            lat = cases[rows][0]
+            e_launch, e_ops, _ = profile_launches(lambda: eager(rows))
+            r_launch, r_ops, _ = profile_launches(lambda: paired(rows))
+            out["keys"][rows] = {
+                "max_abs_diff": diffs, "residuals_shared": shared.get(rows),
+                "static_cond_rows": pair.cn.cond.shape[0] if rows in shared else None,
+                "counts_same": e.counters == r.counters and e.log == r.log,
+                "eager_launches": e_launch, "replay_launches": r_launch,
+                "eager_device_ops": e_ops, "replay_device_ops": r_ops,
+                "eager_ms": time_ms(lambda: eager(rows), 1, 5),
+                "replay_ms": time_ms(lambda: paired(rows), 1, 5),
+                "controlnet_eager_ms": time_ms(lambda: bundle.apply_controlnet(
+                    lat, 501.0, cases[rows][1], cases[rows][3],
+                    conditioning_scale=scale, **cases[rows][2]), 1, 5)}
+        torch.cuda.synchronize()
+        for rows in path["pair_rows"]:
+            pair = next(g for g in graphs.graphs.values()
+                        if g.cn is not None and g.cn.residuals[1].shape[0] == rows)
+            out["keys"][rows]["controlnet_replay_ms"] = time_ms(pair.cn.graph.replay, 1, 5)
+        out["memory"] = {
+            "allocated_over_before": torch.cuda.memory_allocated() - mem0,
+            "static_cond_bytes": sum(g.cn.cond.numel() * g.cn.cond.element_size()
+                                     for g in graphs.graphs.values() if g.cn),
+            "graph_pool_bytes": graph_pool_bytes()}
+        out["counts"] = {"replays": bundle.controlnet_graph_replays,
+                         "captures": bundle.controlnet_graph_captures,
+                         "eager": bundle.controlnet_graph_eager}
+    finally:
+        hook.remove()
+        graphs.drop()
+    emit(out)
+    if not all(shared.get(rows) for rows in path["pair_rows"]):
+        fail(f"{path['name']} pairs: the UNet graph did not read the "
+             f"ControlNet graph's residuals: {shared}")
+    if not all(k["counts_same"] for k in out["keys"].values()):
+        fail(f"{path['name']} pairs: a replay counted other kernels than an "
+             f"eager call")
+    if not worst == 0.0:
+        fail(f"{path['name']} pairs: replay differs from the eager forwards "
+             f"by {worst}")
+
+
+def replayed_residuals(bundle, key):
+    """Whether the ControlNet graph of the pair at `key` ran at the call
+    just made: the residuals it left in the pool against the ControlNet's
+    eager forward on the static inputs the call loaded. A replay that did
+    not run the ControlNet leaves an earlier call's residuals there, or
+    whatever another graph wrote over them since. The eager forward is
+    taken off the kernel wrappers' counters and the launch log.
+    {"rel_l2", "max_abs", "rms"}."""
+    from elasticdiffusion_tpu_torch.models.registry import _fp32_convs
+    from elasticdiffusion_tpu_torch.models.unet_graphs import _counters
+    g = bundle.unet_graphs.graphs[key]
+    _, shape, _, _, scale = key[-1]
+    latent, context, text, time_ids = g.inputs[:4]
+    extras = {k: v for k, v in (("added_text_embeds", text),
+                                ("added_time_ids", time_ids)) if v is not None}
+    saved, log = _counters(), kernels.launch_log
+    kernels.launch_log = None
+    try:
+        with torch.no_grad(), _fp32_convs():
+            down, mid = bundle.controlnet(latent, g.t, context,
+                                          g.cn.cond.expand(shape),
+                                          conditioning_scale=scale, **extras)
+    finally:
+        for (w, name), n in saved.items():
+            setattr(w, name, n)
+        kernels.launch_log = log
+    want = torch.cat([r.float().flatten() for r in (*down, mid)])
+    got = torch.cat([r.float().flatten()
+                     for r in (*g.cn.residuals[0], g.cn.residuals[1])])
+    return {"rel_l2": ((got - want).norm() / want.norm()).item(),
+            "max_abs": (got - want).abs().max().item(),
+            "rms": want.pow(2).mean().sqrt().item()}
+
+
+def check_replayed_pairs(bundle, out: dict):
+    """After every ``bundle.apply_unet`` call that replayed a pair, before
+    any other call can replay a graph over its pool memory, add
+    ``replayed_residuals`` of its key to `out` under its rows. Returns the
+    function that stops it."""
+    from elasticdiffusion_tpu_torch.models.unet_graphs import graph_key
+    apply = bundle.apply_unet
+
+    def checked(latent, t, context, **kwargs):
+        eps = apply(latent, t, context, **kwargs)
+        if (kwargs.get("controlnet_cond") is not None
+                and bundle.unet_graphs.last == "replay"):
+            out.setdefault(int(latent.shape[0]), []).append(
+                replayed_residuals(bundle, graph_key(latent, t, context,
+                                                     **kwargs)))
+        return eps
+
+    bundle.apply_unet = checked
+    return lambda: setattr(bundle, "apply_unet", apply)
+
+
 def plain_cuda_counts():
     from elasticdiffusion_tpu_torch.kernels.attention import dot_product_attention
     from elasticdiffusion_tpu_torch.kernels.groupnorm import group_norm
@@ -1757,6 +1937,12 @@ def request_pipe(pipe, req):
     return other
 
 
+# A replayed pair's ControlNet graph's residuals against the ControlNet's
+# eager forward on the same static inputs: a replay computes them to the
+# bit (the graphs phase); residuals left from an earlier call of the key,
+# at another step's latent and timestep, lie far outside
+PAIR_RESIDUAL_REL_L2 = 1e-3
+
 # A run resumed from a latent checkpoint against the same run uninterrupted:
 # the same kernels on the same inputs in the same order
 RESUME_TOL_REL_L2 = 1e-6
@@ -1847,8 +2033,12 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     calls = collections.Counter()
     residual_rms = {}
 
-    def count(name):
-        return lambda *a: calls.update([name])
+    def controlnet_calls():
+        # a call replayed from a CUDA graph runs no module hook: the
+        # bundle counts the ControlNet's calls of every kind
+        return (bundle.controlnet_graph_replays
+                + bundle.controlnet_graph_captures
+                + bundle.controlnet_graph_eager)
 
     def first_residuals(module, inputs, out):
         # the ControlNet's first call of the path: the first step's direction
@@ -1865,8 +2055,7 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
 
     hooks = [bundle.unet.register_forward_pre_hook(read_tf32)]
     if controlnet is not None:
-        hooks += [controlnet.register_forward_hook(count("controlnet")),
-                  controlnet.register_forward_hook(first_residuals),
+        hooks += [controlnet.register_forward_hook(first_residuals),
                   controlnet.register_forward_pre_hook(read_tf32)]
     kernels.launch_log = collections.Counter()
     # the UNet calls the pipeline made: a call replayed from a CUDA graph
@@ -1874,6 +2063,11 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
     graphs = bundle.unet_graphs
     applied, graphs0 = [], (graphs.replays, graphs.captures)
     unrecord = record_unet_rows(bundle, applied)
+    calls0 = controlnet_calls()
+    # by rows: each replayed pair's ControlNet graph against its eager forward
+    replayed = {}
+    uncheck = check_replayed_pairs(bundle, replayed) \
+        if controlnet is not None else None
 
     answers, first = [], None
     for i, req in enumerate(path["requests"]):
@@ -1920,7 +2114,10 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         if path.get("resume") else None
     for h in hooks:
         h.remove()
+    if uncheck is not None:
+        uncheck()
     unrecord()
+    calls["controlnet"] = controlnet_calls() - calls0
     graphed = {"apply_unet_calls": len(applied),
                "replays": graphs.replays - graphs0[0],
                "captures": graphs.captures - graphs0[1]}
@@ -1948,6 +2145,10 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
           "controlnet_calls": calls["controlnet"],
           "gate_convs_per_controlnet_call": len(cn_convs),
           "controlnet_residual_rms_first_step": residual_rms,
+          "controlnet_replays_checked": {
+              rows: {"calls": len(r), "max_rel_l2": max(v["rel_l2"] for v in r),
+                     "min_rms": min(v["rms"] for v in r)}
+              for rows, r in replayed.items()},
           "condition_seconds": condition_seconds,
           "condition_std": [None if c is None else float(c.std())
                             for c in conditions],
@@ -1989,6 +2190,13 @@ def phase_requests(pipe, path, steps: int, resampling: int, checked=None):
         if calls["controlnet"] != len(applied):
             fail(f"{path['name']}: {calls['controlnet']} ControlNet calls for "
                  f"{len(applied)} UNet calls")
+        stale = {rows: r for rows, r in replayed.items()
+                 if not all(v["rel_l2"] <= PAIR_RESIDUAL_REL_L2 and v["rms"] > 0
+                            for v in r)}
+        if not replayed or stale:
+            fail(f"{path['name']}: a replayed pair's ControlNet graph did not "
+                 f"leave the residuals of the call (none replayed: "
+                 f"{not replayed}): {stale}")
         if not (len(residual_rms) == 2
                 and all(v > 0 for v in residual_rms.values())):
             fail(f"{path['name']}: the ControlNet's residuals are zero at the "
@@ -2836,6 +3044,8 @@ def main(argv=None) -> int:
                         phase_controlnet_model(bundle, path)
             if "graphs" in phases and "graph_rows" in path:
                 phase_graphs(bundle, path)
+            if "graphs" in phases and "pair_rows" in path:
+                phase_graph_pairs(bundle, path)
             if "requests" in phases:
                 pipe = ElasticDiffusion(device="cuda", bundle=bundle,
                                         sd_version=path["sd_version"],

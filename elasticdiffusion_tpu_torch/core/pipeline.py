@@ -77,8 +77,9 @@ class _StepContext:
     add_text_cfg: Optional[torch.Tensor] = None
     uncond_pooled: Optional[torch.Tensor] = None
     add_time_ids: Optional[torch.Tensor] = None
-    # ControlNet condition (B, 3, down_h * vsf, down_w * vsf); None without
-    controlnet_cond: Optional[torch.Tensor] = None
+    # the ControlNet conditions of every estimator call
+    # (``signals.image_conditions``); None without
+    controlnet_cond: Optional[signals.ControlNetConditions] = None
     controlnet_scale: float = 1.0
 
 
@@ -393,6 +394,7 @@ class ElasticDiffusion:
         down_h, down_w = resample_plan.out_h, resample_plan.out_w
         view_plan = build_view_plan(lat_h, lat_w, self.view_config)
         m = b.config.min_latent_size
+        down_pad = PadSpec(down_h, down_w, m, m)
         V = view_plan.num_views
         vbs = self.runtime.view_batch_size or self.view_batch_size
 
@@ -409,8 +411,8 @@ class ElasticDiffusion:
                                                   default_size)
             uncond_pooled_arg = uncond_pooled
 
-        # ControlNet condition, at the downsampled size in pixels: the
-        # direction pads it, the local signal upsamples and crops it
+        # ControlNet condition, at the downsampled size in pixels: padded
+        # for the direction, upsampled and cropped for the views, once
         cn_cond = None
         if condition_image is not None:
             if b.controlnet is None:
@@ -424,11 +426,13 @@ class ElasticDiffusion:
                 raise ValueError(f"condition must be (1|{B}, 3, h, w) in "
                                  f"[0, 1], got {tuple(cn_cond.shape)}")
             cn_cond = nearest_resize(cn_cond, (down_h * vsf, down_w * vsf))
-            cn_cond = cn_cond.expand(B, *cn_cond.shape[1:])
+            cn_cond = signals.image_conditions(
+                cn_cond.expand(B, *cn_cond.shape[1:]), down_pad, view_plan, B,
+                vsf, b.controlnet.dtype)
 
         return _StepContext(
             resample_plan=resample_plan, view_plan=view_plan,
-            down_pad=PadSpec(down_h, down_w, m, m),
+            down_pad=down_pad,
             view_pad=PadSpec(*view_plan.out_shape, m, m),
             guidance_scale=guidance_scale, resampling_steps=resampling_steps,
             drop_p=1 - new_p, view_chunk=vbs if vbs and vbs < V else 0,
@@ -512,9 +516,11 @@ class ElasticDiffusion:
         step loop's UNet calls replayed from a CUDA graph and captured into
         one, ``models/unet_graphs.py``; 0 on the CPU), with a ControlNet
         ``controlnet_view_forwards`` (its rows in the step loop, counted at
-        ``ModelBundle.apply_controlnet``) and ``controlnet_device_seconds``
-        (the summed stream time of those calls, ``CallClock``; the host
-        clock on the CPU), ``preamble_seconds``, ``denoise_seconds`` and
+        ``ModelBundle.apply_unet``), ``controlnet_graph_replays`` and
+        ``controlnet_graph_captures`` (its calls replayed from a CUDA graph
+        and captured into one; 0 on the CPU) and
+        ``controlnet_device_seconds`` (the summed stream time of its part
+        of those calls, ``CallClock``; the host clock on the CPU), ``preamble_seconds``, ``denoise_seconds`` and
         ``decode_seconds`` (host clock, each phase ended by a
         synchronisation on the GPU) and ``decode_route`` (``plain``,
         ``tiled`` or ``halo:`` and the branch ``halo_decode`` took). With a
@@ -589,7 +595,8 @@ class ElasticDiffusion:
             rows0 = b.unet_rows
             replays0, captures0 = graphs.replays, graphs.captures
             if b.controlnet is not None:
-                cn_rows0 = b.controlnet_rows
+                cn0 = (b.controlnet_rows, b.controlnet_graph_replays,
+                       b.controlnet_graph_captures)
                 b.controlnet_clock.start()
             for i in steps_iter:
                 inp, use_repaint = sched.inputs(i)
@@ -612,6 +619,8 @@ class ElasticDiffusion:
                     np.savez(checkpoint_path, latent=lat.cpu().numpy(), step=i,
                              generator=ctx.generator.get_state().numpy())
             rows = b.unet_rows - rows0
+            # the decode holds no copy of the image's conditions
+            ctx.controlnet_cond = None
             if on_cuda:
                 torch.cuda.synchronize(dev)
             t_end = time.time_ns()
@@ -625,7 +634,10 @@ class ElasticDiffusion:
             }
             if b.controlnet is not None:
                 self.last_metrics.update(
-                    controlnet_view_forwards=b.controlnet_rows - cn_rows0,
+                    controlnet_view_forwards=b.controlnet_rows - cn0[0],
+                    controlnet_graph_replays=b.controlnet_graph_replays - cn0[1],
+                    controlnet_graph_captures=(b.controlnet_graph_captures
+                                               - cn0[2]),
                     controlnet_device_seconds=b.controlnet_clock.read())
 
             image_log: Dict[str, Any] = {}

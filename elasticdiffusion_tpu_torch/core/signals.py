@@ -22,7 +22,11 @@ Structure, as in the JAX package:
     follows each estimator's batch layout: doubled for the CFG pair,
     zero-padded with the latent's background pads and tiled over the
     resampling substeps for the direction, its first image nearest-upsampled
-    to the full latent's pixels and cropped per view for the local signal
+    to the full latent's pixels and cropped per view for the local signal.
+    The direction's padded condition and every view's are built once an
+    image (``image_conditions``, in the ControlNet's dtype); each estimator
+    call takes a view of them, so every call of one shape passes the same
+    condition and none copies from the host
   - with a mesh, each estimator's merged UNet batch (and every batched
     input of it: contexts, SDXL conditioning, ControlNet conditions) is
     split over the 'views' axis by ``parallel/sharding.py``'s
@@ -32,15 +36,15 @@ Structure, as in the JAX package:
     the local signal and ``undo_step`` record their spans; the ``unet``
     span's ``graph`` attribute says whether the UNet forward was replayed
     from a CUDA graph, captured, or ran eagerly. With a ControlNet, its
-    forward has a ``controlnet`` span inside the ``unet`` span, and the
-    building of each estimator's condition a ``cond`` span
+    forward has a ``controlnet`` span inside the ``unet`` span (recorded by
+    ``ModelBundle.apply_unet``, with the same ``graph`` attribute), and the
+    building of the image's conditions a ``cond`` span
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -74,9 +78,10 @@ def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
     controlnet_cond: (B', 3, H', W') at the padded input's pixels. The
     trace's ``unet`` span; its ``graph`` attribute says how the UNet ran
     (``"replay"``, ``"capture"`` or ``"eager"``, ``models/unet_graphs.py``).
-    Only the UNet is graphed: the pads, the ControlNet (its own
-    ``controlnet`` span inside the ``unet`` span) and the crop run eagerly
-    around it."""
+    The ControlNet and the UNet run in ``ModelBundle.apply_unet``, as a
+    pair of graphs where the UNet is graphed (the ControlNet's own
+    ``controlnet`` span inside the ``unet`` span); the pads and the crop
+    run eagerly around them."""
     with trace.span("unet", rows=x.shape[0],
                     controlnet=controlnet_cond is not None) as sp:
         x_in = pad_with_background(x, pad_spec, step_bgs)
@@ -86,13 +91,8 @@ def unet_step(bundle, x, t, context, pad_spec: PadSpec, step_bgs,
             kwargs = {"added_text_embeds": add_text_embeds,
                       "added_time_ids": add_time_ids}
         if controlnet_cond is not None:
-            with trace.span("controlnet", rows=x_in.shape[0], h=x_in.shape[2],
-                            w=x_in.shape[3], scale=controlnet_scale):
-                down, mid = bundle.apply_controlnet(
-                    x_in, t, context, controlnet_cond,
-                    conditioning_scale=controlnet_scale, **kwargs)
-            kwargs["down_block_residuals"] = down
-            kwargs["mid_block_residual"] = mid
+            kwargs.update(controlnet_cond=controlnet_cond,
+                          conditioning_scale=controlnet_scale)
         eps = bundle.apply_unet(x_in, t, context, **kwargs)
         sp.set(graph=bundle.unet_graphs.last)
         return crop_from_padding(eps, pad_spec)
@@ -174,7 +174,8 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
                                  scripted_picks=None, controlnet_cond=None,
                                  controlnet_scale: float = 1.0, mesh=None
                                  ) -> DirectionResult:
-    """Global CFG direction with randomized resampling.
+    """Global CFG direction with randomized resampling. controlnet_cond:
+    the image's ``ControlNetConditions`` (``image_conditions``), or None.
 
     The UNet inputs of all substeps are downsamples of the SAME latent, so:
     (1) the pick chain derives every substep's pick, (2) ONE CFG-batched UNet
@@ -211,14 +212,7 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
         tid = add_time_ids.expand(2 * n_sub * B, *add_time_ids.shape[1:])
     cn = None
     if controlnet_cond is not None:
-        # the low-res condition is ZERO-padded by the latent's background
-        # pads in pixels, then laid out as the latents are
-        vsf = bundle.vae_scale_factor
-        l, r, tp, bp = pad_spec.pads
-        with trace.span("cond", kind="global") as sp:
-            low = F.pad(controlnet_cond, (l * vsf, r * vsf, tp * vsf, bp * vsf))
-            cn = low.repeat(2 * n_sub, 1, 1, 1)
-            sp.set(h=cn.shape[2], w=cn.shape[3])
+        cn = direction_condition(controlnet_cond.padded, 2 * n_sub)
     run = _unet_rows(bundle, t, pad_spec, step_bgs, controlnet_scale)
     eps = sharded_call(run, mesh, x2, ctx, ate, tid, cn).float()
     eps_u = eps[:n_sub * B].reshape(n_sub, B, C, dh, dw)
@@ -243,22 +237,55 @@ def approximate_latent_direction(bundle, latent, generator, t, text_embeds_cfg,
                            downsampled_direction=down_dir)
 
 
+class ControlNetConditions(NamedTuple):
+    """An image's ControlNet conditions, built once (``image_conditions``);
+    each estimator call takes a view of them."""
+
+    padded: torch.Tensor  # (B, 3, H', W'): the direction's, zero-padded
+    views: torch.Tensor   # (V * B, 3, h, w): the local signal's, by view
+
+
+def image_conditions(controlnet_cond, pad_spec: PadSpec, plan: ViewPlan,
+                     B: int, vsf: int, dtype) -> ControlNetConditions:
+    """The conditions of every estimator call of one image, in `dtype`, the
+    ControlNet's (its forward casts the condition to it first, and padding,
+    upsampling and cropping copy values, so the numbers are the same): the
+    low-res condition (B, 3, down_h * vsf, down_w * vsf) ZERO-padded by the
+    latent's background pads in pixels, and ``view_conditions``. The
+    trace's ``cond`` span."""
+    with trace.span("cond") as sp:
+        cond = controlnet_cond.to(dtype)
+        l, r, tp, bp = pad_spec.pads
+        padded = F.pad(cond, (l * vsf, r * vsf, tp * vsf, bp * vsf))
+        views = view_conditions(cond, plan, B, vsf)
+        sp.set(h=padded.shape[2], w=padded.shape[3],
+               view_rows=views.shape[0], view_h=views.shape[2],
+               view_w=views.shape[3])
+    return ControlNetConditions(padded, views)
+
+
+def direction_condition(padded: torch.Tensor, n: int) -> torch.Tensor:
+    """The direction call's condition, laid out as its latents: `n` blocks
+    (uncond then cond, each over the substeps) of the B padded rows. One
+    image is broadcast, not copied: a graph keeps one row of it."""
+    if padded.shape[0] == 1:
+        return padded.expand(n, *padded.shape[1:])
+    return padded.repeat(n, 1, 1, 1)
+
+
 def view_conditions(controlnet_cond, plan: ViewPlan, B: int,
                     vsf: int) -> torch.Tensor:
     """The condition of every view, (V * B, 3, out_h * vsf, out_w * vsf):
     the first image nearest-upsampled to the full latent's pixels and
     broadcast over B, cropped with the view plan's rows and columns in
-    pixels (each latent index repeated vsf times, plus 0..vsf-1)."""
+    pixels (each latent index times vsf, plus 0..vsf-1), indices built on
+    the device from the plan's."""
     H, W = plan.latent_h * vsf, plan.latent_w * vsf
     up = nearest_resize(controlnet_cond[:1], (H, W))
     up = up.expand(B, *up.shape[1:])
-    sub = np.arange(vsf)
-    rows = (np.repeat(plan.rows * vsf, vsf, axis=1)
-            + np.tile(sub, plan.rows.shape[1]))
-    cols = (np.repeat(plan.cols * vsf, vsf, axis=1)
-            + np.tile(sub, plan.cols.shape[1]))
-    rows = torch.from_numpy(rows.astype(np.int64)).to(up.device)
-    cols = torch.from_numpy(cols.astype(np.int64)).to(up.device)
+    sub = torch.arange(vsf, device=up.device)
+    rows, cols = ((plan.on(name, up.device)[:, :, None] * vsf + sub).flatten(1)
+                  for name in ("rows", "cols"))
     # (B, 3, V, h, w) -> (V, B, 3, h, w), the order of the latent views
     views = up[:, :, rows[:, :, None], cols[:, None, :]].permute(2, 0, 1, 3, 4)
     return views.reshape(-1, *views.shape[2:])
@@ -274,7 +301,8 @@ def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
 
     One batched UNet call over all V views, or chunks of view_batch_size
     views with a ragged last chunk (the same numbers either way). With a
-    mesh, each call's rows are split over 'views'.
+    mesh, each call's rows are split over 'views'. controlnet_cond: the
+    image's ``ControlNetConditions`` (``image_conditions``), or None.
     """
     B = latent.shape[0]
     V = plan.num_views
@@ -289,10 +317,7 @@ def compute_local_uncond_signal(bundle, latent, t, uncond_embeds,
             add_time_ids.expand(V * B, *add_time_ids.shape[1:])
         cn = None
         if controlnet_cond is not None:
-            with trace.span("cond", kind="views") as sp:
-                cn = view_conditions(controlnet_cond, plan, B,
-                                     bundle.vae_scale_factor)
-                sp.set(h=cn.shape[2], w=cn.shape[3])
+            cn = controlnet_cond.views
 
         run = _unet_rows(bundle, t, pad_spec, step_bgs, controlnet_scale)
         preds = []

@@ -22,6 +22,7 @@ is absent; the CPU is used only when the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import time
@@ -34,6 +35,7 @@ import torch.nn as nn
 
 from ..configs import (ControlNetConfig, ModelBundleConfig, RuntimeConfig,
                        get_bundle_config)
+from ..utils import trace
 from ..utils.tokenizer import CLIPTokenizer
 from .clip import CLIPTextModel
 from .convert import checkpoint_layout, load_into, read_model
@@ -132,9 +134,16 @@ class ModelBundle:
     controlnet: Optional[ControlNet] = None
     # UNet rows run by ``apply_unet`` since the bundle was made
     unet_rows: int = 0
-    # ControlNet rows run by ``apply_controlnet`` since the bundle was made
+    # ControlNet rows run since the bundle was made (``apply_controlnet``,
+    # ``apply_unet`` with a condition)
     controlnet_rows: int = 0
-    # the seconds of ``apply_controlnet``'s calls in a period the caller sets
+    # those calls by how the ControlNet ran: replayed from a CUDA graph,
+    # captured into one, or eagerly (``models/unet_graphs.py``)
+    controlnet_graph_replays: int = 0
+    controlnet_graph_captures: int = 0
+    controlnet_graph_eager: int = 0
+    # the seconds of the ControlNet's part of those calls in a period the
+    # caller sets
     controlnet_clock: CallClock = field(default_factory=CallClock, repr=False,
                                         compare=False)
     # the UNet forward's CUDA graphs (``models/unet_graphs.py``)
@@ -161,10 +170,23 @@ class ModelBundle:
 
     def apply_unet(self, latent_nchw, t, context, added_text_embeds=None,
                    added_time_ids=None, down_block_residuals=None,
-                   mid_block_residual=None):
+                   mid_block_residual=None, controlnet_cond=None,
+                   conditioning_scale=1.0):
         """The UNet forward, without autograd. On a CUDA device it runs
         from a CUDA graph of its input key from the key's second call on
-        (``models/unet_graphs.py``); on the CPU, eagerly."""
+        (``models/unet_graphs.py``); on the CPU, eagerly. With a ControlNet
+        condition (B, 3, h * f, w * f) the ControlNet runs first and the
+        UNet takes its residuals, the two eagerly or as a pair of graphs
+        (``UNetGraphs.pair``); the ControlNet's part is counted, timed and
+        traced as ``apply_controlnet`` is."""
+        if controlnet_cond is not None:
+            if down_block_residuals is not None or mid_block_residual is not None:
+                raise ValueError("a call with a ControlNet condition makes its "
+                                 "own residuals")
+            return self._apply_pair(
+                latent_nchw, t, context, controlnet_cond, conditioning_scale,
+                added_text_embeds=added_text_embeds,
+                added_time_ids=added_time_ids)
         self.unet_rows += latent_nchw.shape[0]
         extras = dict(added_text_embeds=added_text_embeds,
                       added_time_ids=added_time_ids,
@@ -175,25 +197,56 @@ class ModelBundle:
             return self.unet_graphs(key, self.unet, latent_nchw, t, context,
                                     **extras)
 
+    def _apply_pair(self, latent_nchw, t, context, cond, scale, **extras):
+        self._need_controlnet()
+        key = graph_key(latent_nchw, t, context, controlnet_cond=cond,
+                        conditioning_scale=scale, **extras)
+        self.unet_rows += latent_nchw.shape[0]
+        part = lambda kind: self._controlnet_part(latent_nchw, scale, kind)
+        with torch.no_grad(), _fp32_convs():
+            return self.unet_graphs.pair(key, self.unet, self.controlnet,
+                                         latent_nchw, t, context, cond, scale,
+                                         part, **extras)
+
+    def _need_controlnet(self) -> None:
+        if self.controlnet is None:
+            raise ValueError("the bundle has no ControlNet: load it with "
+                             "controlnet_model=...")
+
+    @contextlib.contextmanager
+    def _controlnet_part(self, latent_nchw, scale, kind: str):
+        """Around the ControlNet's part of a call that ran as `kind`
+        (``"replay"``, ``"capture"`` or ``"eager"``): counts its rows and
+        its kind, times it on ``controlnet_clock``, and records the
+        ``controlnet`` span."""
+        self.controlnet_rows += latent_nchw.shape[0]
+        if kind == "replay":
+            self.controlnet_graph_replays += 1
+        elif kind == "capture":
+            self.controlnet_graph_captures += 1
+        else:
+            self.controlnet_graph_eager += 1
+        with trace.span("controlnet", rows=latent_nchw.shape[0],
+                        h=latent_nchw.shape[2], w=latent_nchw.shape[3],
+                        scale=scale, graph=kind):
+            tick = self.controlnet_clock.begin(latent_nchw.device)
+            yield
+            self.controlnet_clock.end(tick)
+
     @torch.no_grad()
     def apply_controlnet(self, latent_nchw, t, context, condition_nchw,
                          conditioning_scale=1.0, added_text_embeds=None,
                          added_time_ids=None):
-        """(down residuals, mid residual) for ``apply_unet``. Counts its
-        rows (``controlnet_rows``) and times itself on ``controlnet_clock``;
-        always eager."""
-        if self.controlnet is None:
-            raise ValueError("the bundle has no ControlNet: load it with "
-                             "controlnet_model=...")
-        self.controlnet_rows += latent_nchw.shape[0]
-        tick = self.controlnet_clock.begin(latent_nchw.device)
-        with _fp32_convs():
-            out = self.controlnet(latent_nchw, t, context, condition_nchw,
-                                  conditioning_scale=conditioning_scale,
-                                  added_text_embeds=added_text_embeds,
-                                  added_time_ids=added_time_ids)
-        self.controlnet_clock.end(tick)
-        return out
+        """(down residuals, mid residual) for ``apply_unet``, eagerly.
+        Counted, timed and traced as the ControlNet's part of
+        ``apply_unet`` is."""
+        self._need_controlnet()
+        with self._controlnet_part(latent_nchw, conditioning_scale,
+                                   "eager"), _fp32_convs():
+            return self.controlnet(latent_nchw, t, context, condition_nchw,
+                                   conditioning_scale=conditioning_scale,
+                                   added_text_embeds=added_text_embeds,
+                                   added_time_ids=added_time_ids)
 
     @property
     def fp32_decode(self) -> bool:

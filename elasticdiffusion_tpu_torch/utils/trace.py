@@ -32,11 +32,13 @@ are kept in memory, in the order they began. ``generate_image`` records:
              and w of the padded input, controlnet, graph (how the UNet
              forward ran: ``"replay"`` from a CUDA graph, ``"capture"``
              into one, or ``"eager"``; ``models/unet_graphs.py``)
-  controlnet ``ModelBundle.apply_controlnet`` inside ``unet``: rows, h, w,
-             scale
-  cond       the ControlNet condition of an estimator's call: kind
-             (``"global"``, the direction's zero pad, or ``"views"``, the
-             local signal's ``view_conditions``), h and w of each row
+  controlnet the ControlNet's part of ``ModelBundle.apply_unet`` inside
+             ``unet``: rows, h, w, scale, graph (how it ran, as the
+             UNet's: its graph replayed, captured, or ``"eager"``)
+  cond       the building of the image's ControlNet conditions, once an
+             image inside ``context`` (``signals.image_conditions``): h
+             and w of the direction's zero-padded condition, view_rows
+             (the local signal's ``view_conditions``), view_h and view_w
   decode     the decode of all B images: route, peak_bytes
 
 ``preamble``, ``denoise`` and ``decode`` begin and end at the clock reads

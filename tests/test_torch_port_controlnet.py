@@ -18,7 +18,10 @@ import torch
 
 from elasticdiffusion_tpu_torch.configs import ViewConfig
 from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion as TElastic
-from elasticdiffusion_tpu_torch.core.signals import view_conditions
+from elasticdiffusion_tpu_torch.core.background import PadSpec
+from elasticdiffusion_tpu_torch.core.signals import (direction_condition,
+                                                     image_conditions,
+                                                     view_conditions)
 from elasticdiffusion_tpu_torch.models.registry import load_bundle
 from elasticdiffusion_tpu_torch.ops.views import build_view_plan
 from toy_configs import toy_bundle_config
@@ -108,6 +111,49 @@ def test_view_conditions_follow_the_view_crops():
                 r = plan.rows[v, y // f] * f + y % f
                 c = plan.cols[v, x // f] * f + x % f
                 assert torch.equal(view[:, y, x], up[:, r, c])
+
+
+def _per_call_views(cond, plan, B, f):
+    """The local signal's conditions as each call built them before they
+    were built once an image: pixel indices made in NumPy, then copied."""
+    up = torch.nn.functional.interpolate(
+        cond[:1], size=(plan.latent_h * f, plan.latent_w * f), mode="nearest")
+    up = up.expand(B, *up.shape[1:])
+    sub = np.arange(f)
+    rows = torch.from_numpy((np.repeat(plan.rows * f, f, axis=1)
+                             + np.tile(sub, plan.rows.shape[1])).astype(np.int64))
+    cols = torch.from_numpy((np.repeat(plan.cols * f, f, axis=1)
+                             + np.tile(sub, plan.cols.shape[1])).astype(np.int64))
+    views = up[:, :, rows[:, :, None], cols[:, None, :]].permute(2, 0, 1, 3, 4)
+    return views.reshape(-1, *views.shape[2:])
+
+
+@pytest.mark.parametrize("B,dtype", [(1, torch.float32), (2, torch.float32),
+                                     (1, torch.bfloat16)])
+def test_conditions_built_once_equal_the_per_call_build(B, dtype):
+    """``image_conditions`` against what each estimator call built before:
+    the direction's zero-padded condition tiled over 2 (rs + 1) blocks
+    (rs = 3) and the repaint's pair (rs = 0), the views whole and in
+    ragged chunks of 5, each cast to the ControlNet's dtype as its forward
+    casts it. One image is broadcast without a copy."""
+    plan = build_view_plan(16, 24, ViewConfig.from_sample_size(8))
+    f, pad = 2, PadSpec(5, 7, 8, 8)
+    rng = np.random.default_rng(4)
+    cond = torch.from_numpy(rng.uniform(0, 1, (B, 3, 10, 14)).astype(np.float32))
+    got = image_conditions(cond, pad, plan, B, f, dtype)
+    l, r, t, b = pad.pads
+    low = torch.nn.functional.pad(cond, (l * f, r * f, t * f, b * f))
+    for n_sub in (4, 1):
+        d = direction_condition(got.padded, 2 * n_sub)
+        assert d.dtype == dtype
+        assert torch.equal(d, low.repeat(2 * n_sub, 1, 1, 1).to(dtype))
+        assert (d.stride(0) == 0) == (B == 1)
+    want = _per_call_views(cond, plan, B, f)
+    V = plan.num_views
+    for chunk in (V * B, 5 * B):
+        for lo in range(0, V * B, chunk):
+            rows = slice(lo, min(lo + chunk, V * B))
+            assert torch.equal(got.views[rows], want[rows].to(dtype))
 
 
 def test_generate_image_with_condition_matches_jax(monkeypatch, tmp_path):

@@ -7,8 +7,9 @@ image root, each inside its parent's interval, the estimators in each
 step), the phases on ``last_metrics``' own clock reads, Σ ``unet`` rows
 against the counted ``unet_view_forwards`` and the old formula, the decode
 routes, and the shared clock with ``torch.profiler``'s events. With a
-ControlNet: its ``controlnet`` and ``cond`` spans and its counted rows and
-seconds; without one, none of them.
+ControlNet: its ``controlnet`` and ``cond`` spans (the ``controlnet``
+span's ``graph`` attribute), its counted rows, seconds and graph calls, and
+no host array handed to torch in a local call; without one, none of them.
 """
 
 import functools
@@ -22,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from toy_configs import toy_bundle_config
 from torch_port_common import TORCH_TOY_RUNTIME, port_bundle_config
 
+from elasticdiffusion_tpu_torch.core import signals
 from elasticdiffusion_tpu_torch.core.pipeline import ElasticDiffusion
 from elasticdiffusion_tpu_torch.models.registry import (CallClock, ModelBundle,
                                                         load_bundle)
@@ -304,23 +306,65 @@ def _controlnet_spans_lie_in_unet_spans(spans, m):
         assert s.attrs["scale"] == 0.5
 
 
-def _cond_spans_once_per_estimator_call(spans, m):
-    by_id = {s.id: s for s in spans}
+def _cond_span_once_an_image_in_its_context(spans, m):
     conds = [s for s in spans if s.name == "cond"]
-    kinds = {"direction": "global", "local": "views"}
-    assert sorted(by_id[s.parent].name for s in conds) == sorted(
-        s.name for s in spans if s.name in kinds)
+    contexts = [s for s in spans if s.name == "context"]
+    assert len(conds) == len(contexts) > 0
+    assert sorted(s.parent for s in conds) == sorted(s.id for s in contexts)
+    # one image: a row of the views' condition a view
+    views = max(s.attrs["views"] for s in spans if s.name == "local")
     for s in conds:
-        assert s.attrs["kind"] == kinds[by_id[s.parent].name]
-        assert s.attrs["h"] > 0 and s.attrs["w"] > 0
+        assert s.attrs["view_rows"] == views > 0
+        assert min(s.attrs[k] for k in ("h", "w", "view_h", "view_w")) > 0
+    assert not {s.parent for s in spans} & {s.id for s in conds}
+
+
+def _controlnet_spans_carry_the_unets_graph(spans, m):
+    by_id = {s.id: s for s in spans}
+    nets = [s for s in spans if s.name == "controlnet"]
+    assert nets and all(s.attrs["graph"] == by_id[s.parent].attrs["graph"]
+                        == "eager" for s in nets)
+
+
+def _controlnet_graph_counters_read_eager_on_the_cpu(spans, m):
+    assert m["controlnet_graph_replays"] == m["controlnet_graph_captures"] == 0
 
 
 @pytest.mark.parametrize("check", [_controlnet_rows_are_the_unets,
                                    _controlnet_seconds_lie_in_the_loop,
                                    _controlnet_spans_lie_in_unet_spans,
-                                   _cond_spans_once_per_estimator_call])
+                                   _cond_span_once_an_image_in_its_context,
+                                   _controlnet_spans_carry_the_unets_graph,
+                                   _controlnet_graph_counters_read_eager_on_the_cpu])
 def test_a_controlnet_records_its_spans_and_counters(check, canny_traced):
     check(*canny_traced)
+
+
+def test_a_local_call_hands_no_host_array_to_torch(monkeypatch):
+    """The image's ControlNet conditions are built once, in ``_context``:
+    after an image's first local call (which uploads the view plan's owner
+    maps, with a ControlNet or without), no local call hands a NumPy array
+    to torch, the first step of a copy from the host."""
+    arrays, per_call = [], []
+    from_numpy, local = torch.from_numpy, signals.compute_local_uncond_signal
+    monkeypatch.setattr(torch, "from_numpy",
+                        lambda a: arrays.append(a.shape) or from_numpy(a))
+
+    def counted_local(*args, **kwargs):
+        n = len(arrays)
+        out = local(*args, **kwargs)
+        per_call.append(len(arrays) - n)
+        return out
+
+    monkeypatch.setattr(signals, "compute_local_uncond_signal", counted_local)
+    pipe = ElasticDiffusion(bundle=_canny_bundle(), device="cpu")
+    pipe.seed_everything(3)
+    pipe.generate_image("a cat", height=32, width=32, num_inference_steps=2,
+                        resampling_steps=RS, return_arrays=True,
+                        condition_image=torch.rand(1, 3, 32, 32),
+                        controlnet_conditioning_scale=0.5)
+    # step 0's main and repaint pass, step 1's main pass
+    assert len(per_call) == 3 and per_call[1:] == [0, 0], per_call
 
 
 def test_no_controlnet_records_neither_key_nor_span(traced):

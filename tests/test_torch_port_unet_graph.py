@@ -9,10 +9,16 @@ another UNet, a new image size) and what a reload of weights keeps, the
 order of captures (with a stand-in for the capture), the kernel counts a
 replay adds, the counters and the ``unet`` span's ``graph`` attribute, the
 timestep's fill, and GroupNorm's counter buffers, which a graph may hold
-and which are never freed.
+and which are never freed. With a ControlNet beside the UNet: the pair's
+key, its eager CPU calls, the order of its two captures and replays (the
+UNet's graph on the ControlNet graph's residuals), its counts and its
+drops; one case captures and replays a toy pair on a CUDA device, and
+skips without one.
 """
 
 import collections
+import contextlib
+import copy
 import functools
 import types
 
@@ -31,7 +37,7 @@ from elasticdiffusion_tpu_torch.kernels.layernorm import fused_layer_norm
 from elasticdiffusion_tpu_torch.models import unet_graphs
 from elasticdiffusion_tpu_torch.models.convert import load_into
 from elasticdiffusion_tpu_torch.models.layers import Conv3x3
-from elasticdiffusion_tpu_torch.models.registry import load_bundle
+from elasticdiffusion_tpu_torch.models.registry import _fp32_convs, load_bundle
 from elasticdiffusion_tpu_torch.models.unet_graphs import (Counted,
                                                            UNetGraphs,
                                                            counted,
@@ -418,3 +424,242 @@ def test_module_names_the_inputs_of_the_forward():
     from elasticdiffusion_tpu_torch.models.unet import UNet2DCondition
     params = list(inspect.signature(UNet2DCondition.forward).parameters)
     assert tuple(params[4:]) == unet_graphs.EXTRAS
+
+
+# ---------------------------------------------------------------------------
+# a ControlNet beside the UNet: the pair's key, path and graphs
+# ---------------------------------------------------------------------------
+
+def _cond(rows=2, h=16, w=16, seed=1):
+    return torch.rand(rows, 3, h, w, generator=torch.Generator().manual_seed(seed))
+
+
+# each case: a change of the base call's condition and scale, and whether
+# it keeps the key
+PAIR_KEY_CASES = {
+    "values": (lambda c, s: (c + 1, s), True),
+    "scale_int": (lambda c, s: (c, 1), False),
+    "scale": (lambda c, s: (c, 0.25), False),
+    "shape": (lambda c, s: (torch.zeros(2, 3, 16, 32), s), False),
+    "dtype": (lambda c, s: (c.double(), s), False),
+    "broadcast": (lambda c, s: (c[:1].expand(2, 3, 16, 16), s), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAIR_KEY_CASES))
+def test_a_pair_key_holds_the_condition_and_scale(case):
+    l, t, c, kw = _base()
+    plain = input_key(l, t, c, **kw)
+    base = input_key(l, t, c, controlnet_cond=_cond(), conditioning_scale=0.5,
+                     **kw)
+    # a call without a condition keeps today's key; a pair's adds one part
+    assert input_key(l, t, c, controlnet_cond=None, conditioning_scale=0.5,
+                     **kw) == plain
+    assert base[:-1] == plain and base[-1][0] == "controlnet"
+    change, same = PAIR_KEY_CASES[case]
+    cond, scale = change(_cond(), 0.5)
+    other = input_key(l, t, c, controlnet_cond=cond, conditioning_scale=scale,
+                      **kw)
+    assert other is not None and (other == base) == same, case
+
+
+@pytest.mark.parametrize("how", ["scale_tensor", "cond_device"])
+def test_a_pair_without_a_number_or_device_has_no_key(how):
+    l, t, c, _ = _base()
+    cond, scale = _cond(), 0.5
+    if how == "scale_tensor":
+        scale = torch.tensor([0.5, 0.5])
+    else:
+        cond = cond.to("meta")
+    assert input_key(l, t, c, controlnet_cond=cond,
+                     conditioning_scale=scale) is None
+
+
+@pytest.mark.parametrize("xl", [False, True])
+def test_cpu_pair_calls_stay_eager_and_equal_the_modules(xl):
+    b = _bundle(xl, "canny")
+    lat, ctx, kw = _inputs(b, rows=3)
+    cond = _cond(3)
+    with torch.no_grad():
+        down, mid = b.controlnet(lat, 500.0, ctx, cond, conditioning_scale=0.7,
+                                 **kw)
+        want = b.unet(lat, 500.0, ctx, down_block_residuals=down,
+                      mid_block_residual=mid, **kw)
+    g = b.unet_graphs
+    before = (g.eager, b.controlnet_graph_eager, b.controlnet_rows)
+    for _ in range(3):
+        got = b.apply_unet(lat, 500.0, ctx, controlnet_cond=cond,
+                           conditioning_scale=0.7, **kw)
+        assert torch.equal(got, want) and g.last == "eager"
+    assert (g.eager, b.controlnet_graph_eager, b.controlnet_rows) == (
+        before[0] + 3, before[1] + 3, before[2] + 9)
+    assert not g.graphs
+    with pytest.raises(ValueError, match="own residuals"):
+        b.apply_unet(lat, 500.0, ctx, controlnet_cond=cond,
+                     mid_block_residual=mid, **kw)
+
+
+class _FakeGraph:
+    def __init__(self, name, log):
+        self.name, self.log = name, log
+
+    def replay(self):
+        self.log.append(self.name)
+
+
+def _fake_record(log, counts):
+    """``UNetGraphs._record`` without CUDA: the block run once (its output
+    the static one), a graph whose replay is logged, and `counts` as what
+    its capture counted (the ControlNet's first, the UNet's second)."""
+    def record(self, dev, fn):
+        out = fn()
+        name = "controlnet" if isinstance(out, tuple) else "unet"
+        log.append(f"capture {name}")
+        return _FakeGraph(name, log), out, Counted(
+            {(conv3x3, "launches"): counts[name]})
+    return record
+
+
+def _pair_call(g, b, inputs, parts=None):
+    lat, ctx, kw, cond = inputs
+    key = input_key(lat, 500.0, ctx, controlnet_cond=cond,
+                    conditioning_scale=0.5, **kw)
+    part = lambda kind: (parts.append(kind), contextlib.nullcontext())[1] \
+        if parts is not None else contextlib.nullcontext()
+    with torch.no_grad():
+        return g.pair(key, b.unet, b.controlnet, lat, 500.0, ctx, cond, 0.5,
+                      part, **kw)
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_a_pair_is_captured_at_the_second_sight_controlnet_first(
+        monkeypatch, broadcast):
+    """First sight eager, second captures the ControlNet, then the UNet
+    on the ControlNet graph's residuals (the very tensors), and replays
+    both; later sights load the inputs and replay the ControlNet, then the
+    UNet. A broadcast condition keeps one row. Every call equals the
+    eager pair."""
+    log = []
+    monkeypatch.setattr(UNetGraphs, "_record",
+                        _fake_record(log, {"controlnet": 3, "unet": 5}))
+    b = _bundle(True, "canny")
+    lat, ctx, kw = _inputs(b, rows=2)
+    cond = _cond(1).expand(2, 3, 16, 16) if broadcast else _cond(2)
+    seen = []
+    hook = b.unet.register_forward_pre_hook(
+        lambda m, a, k: seen.append(k.get("down_block_residuals")),
+        with_kwargs=True)
+    g, parts = UNetGraphs(), []
+    try:
+        outs = [_pair_call(g, b, (lat, ctx, kw, cond), parts) for _ in range(3)]
+    finally:
+        hook.remove()
+    assert parts == ["eager", "capture", "replay"]
+    assert log == ["capture controlnet", "controlnet", "capture unet", "unet",
+                   "controlnet", "unet"]
+    assert (g.eager, g.captures, g.replays) == (1, 1, 1)
+    pair = next(iter(g.graphs.values()))
+    assert seen[1] is pair.cn.residuals[0]   # written in place, no copy
+    assert all(v is None for v in pair.inputs[4:])
+    assert pair.cn.cond.shape[0] == (1 if broadcast else 2)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_a_pair_replay_counts_what_its_captures_counted(monkeypatch):
+    monkeypatch.setattr(UNetGraphs, "_record",
+                        _fake_record([], {"controlnet": 3, "unet": 5}))
+    b = _bundle(False, "canny")
+    lat, ctx, kw = _inputs(b, rows=2)
+    g = UNetGraphs()
+    saved = conv3x3.launches
+    try:
+        for _ in range(2):
+            _pair_call(g, b, (lat, ctx, kw, _cond()))
+        n = conv3x3.launches
+        _pair_call(g, b, (lat, ctx, kw, _cond()))
+        assert g.last == "replay" and conv3x3.launches - n == 8
+    finally:
+        conv3x3.launches = saved
+
+
+def _realloc(module, name):
+    w = module.get_submodule(name).weight
+    w.data = w.data.clone()
+
+
+@pytest.mark.parametrize("change,dropped", [
+    ("nothing", False), ("reload_in_place", False), ("another_controlnet", True),
+    ("controlnet_first_weight", True), ("controlnet_last_weight", True),
+    ("set_use_kernels", True), ("set_conv_impl", True), ("new_image", True)])
+def test_what_drops_a_pairs_graphs(monkeypatch, change, dropped):
+    monkeypatch.setattr(UNetGraphs, "_record",
+                        _fake_record([], {"controlnet": 0, "unet": 0}))
+    b = load_bundle("toy", TORCH_TOY_RUNTIME,
+                    bundle_config=port_bundle_config(toy_bundle_config(False)),
+                    controlnet_model="canny", device="cpu")
+    lat, ctx, kw = _inputs(b, rows=2)
+    inputs = (lat, ctx, kw, _cond())
+    g = b.unet_graphs
+    for _ in range(2):
+        _pair_call(g, b, inputs)
+    assert len(g.graphs) == 1
+    cn = b.controlnet
+    if change == "reload_in_place":
+        load_into(cn, cn.state_dict(), "toy controlnet")
+    elif change == "another_controlnet":
+        b.controlnet = copy.deepcopy(cn)
+    elif change == "controlnet_first_weight":
+        _realloc(cn, "conv_in")
+    elif change == "controlnet_last_weight":
+        _realloc(cn, "controlnet_mid_block")
+    elif change == "set_use_kernels":
+        b.set_use_kernels(b.unet.down_blocks[0].resnets[0].norm1.use_kernels)
+    elif change == "set_conv_impl":
+        b.set_conv_impl(b.runtime.conv_impl)
+    elif change == "new_image":
+        g.for_image(("another",))
+    _pair_call(g, b, inputs)
+    assert g.last == ("eager" if dropped else "replay")
+    assert (len(g.graphs) == 0) == dropped
+
+
+@pytest.mark.chip
+def test_a_pair_replays_to_the_bit_on_the_card():
+    """On a CUDA device: the pair through ``apply_unet`` runs eagerly,
+    captures, replays, and every output equals the modules' eager forward
+    bit for bit, at a second timestep and condition too; the UNet graph
+    reads the ControlNet graph's residuals where they lie."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph is captured and replayed")
+    b = load_bundle("toy", TORCH_TOY_RUNTIME,
+                    bundle_config=port_bundle_config(toy_bundle_config(True)),
+                    controlnet_model="canny", device="cuda")
+    lat, ctx, kw = (v.cuda() if torch.is_tensor(v) else
+                    {k: x.cuda() for k, x in v.items()} for v in _inputs(b))
+    seen = []
+    hook = b.unet.register_forward_pre_hook(
+        lambda m, a, k: seen.append([r.data_ptr() for r in
+                                     k["down_block_residuals"]]),
+        with_kwargs=True)
+    try:
+        for t, cond in ((500.0, _cond().cuda()), (500.0, _cond().cuda()),
+                        (500.0, _cond(seed=2).cuda()), (261.0, _cond().cuda())):
+            got = b.apply_unet(lat, t, ctx, controlnet_cond=cond,
+                               conditioning_scale=0.5, **kw)
+            # the flags apply_unet sets around the forwards: fp32 convs
+            # without TF32
+            with torch.no_grad(), _fp32_convs():
+                down, mid = b.controlnet(lat, t, ctx, cond,
+                                         conditioning_scale=0.5, **kw)
+                want = b.unet(lat, t, ctx, down_block_residuals=down,
+                              mid_block_residual=mid, **kw)
+            assert torch.equal(got, want), (t, b.unet_graphs.last)
+    finally:
+        hook.remove()
+    g = b.unet_graphs
+    assert (g.eager, g.captures, g.replays) == (1, 1, 2)
+    pair = next(iter(g.graphs.values()))
+    # the UNet forwards: each call's, then its reference's; a replay runs
+    # none, so the capture's is the third
+    assert len(seen) == 6
+    assert seen[2] == [r.data_ptr() for r in pair.cn.residuals[0]]

@@ -12,8 +12,8 @@ window is ``run.py``'s closed loop of ``--seconds``. Then:
 1. a window with the tracer off: ``image_s``, the allocator's peak over
    the window (``peak_mem_gib``) and its peak reserved bytes, and each
    image's ``unet_graph_replays`` and ``unet_graph_captures`` (beside the
-   warm-up image's captures) and, with a ControlNet, its rows and
-   device seconds;
+   warm-up image's captures) and, with a ControlNet, its rows, device
+   seconds and ControlNet graph replays and captures;
 2. a window under ``torch.profiler`` with ``run.py``'s ranges (the window,
    each image, the ``layer:`` ranges of ``portbench/trace.py``) and the
    tracer set: ``portbench/spans.py``'s readings beside the breakdown's
@@ -24,8 +24,9 @@ window is ``run.py``'s closed loop of ``--seconds``. Then:
    clock: how far each ``layer:ModelBundle.apply_unet`` range starts
    after its ``unet`` span starts and ends before it ends; with a
    ControlNet, its ``controlnet`` and ``cond`` spans' idle seconds,
-   launches and host milliseconds (``idle_by_span`` names their idle
-   ``controlnet`` and ``cond``);
+   launches and host milliseconds, the ``controlnet`` spans also by their
+   ``graph`` attribute (``idle_by_span`` names their idle ``controlnet``
+   and ``cond``);
 3. ``--pairs`` windows with the tracer set and as many with it off, in
    turns (on, off, off, on, ...): ``image_s`` of each, and the largest
    ``preamble`` / ``denoise`` / ``decode`` peak of the windows with it set.
@@ -124,18 +125,23 @@ def _clock(events, unets):
 
 
 def _span_readings(events, spans_, names):
-    """Per span name of `names` (spans that do not nest in one another):
-    the window's spans, the device's idle seconds inside them, and the
-    launches starting inside them, over the spans; empty for names with
-    no span."""
+    """Per span name of `names` (spans that do not nest in one another),
+    and per name and ``graph`` attribute where the spans carry one
+    (``controlnet/replay``): the window's spans, the device's idle seconds
+    inside them, and the launches starting inside them, over the spans;
+    empty for names with no span."""
     from portbench import spans
     win, busy = spans.window_and_busy(events)
     gaps = spans.idle_gaps(win, busy)
     starts = [g[0] for g in gaps]
+    groups = {}
+    for s in sorted(spans_, key=lambda s: s.t0_ns):
+        if s.name in names and s.t1_ns is not None and win[0] <= s.t0_ns <= win[1]:
+            groups.setdefault(s.name, []).append(s)
+            if "graph" in s.attrs:
+                groups.setdefault(f"{s.name}/{s.attrs['graph']}", []).append(s)
     out = {}
-    for name in names:
-        some = sorted((s for s in spans_ if s.name == name and s.t1_ns is not None
-                       and win[0] <= s.t0_ns <= win[1]), key=lambda s: s.t0_ns)
+    for name, some in groups.items():
         if some:
             out[name] = {
                 "spans": len(some),
@@ -189,7 +195,9 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
                 "spans": tracer.spans if on else None,
                 "fwd": [img["metrics"]["unet_view_forwards"] for img in images],
                 "controlnet": [(img["metrics"].get("controlnet_view_forwards"),
-                                img["metrics"].get("controlnet_device_seconds"))
+                                img["metrics"].get("controlnet_device_seconds"),
+                                img["metrics"].get("controlnet_graph_replays"),
+                                img["metrics"].get("controlnet_graph_captures"))
                                for img in images],
                 "graph": [(img["metrics"].get("unet_graph_replays"),
                            img["metrics"].get("unet_graph_captures"))
@@ -203,7 +211,7 @@ def measure(cell, seed: int, seconds: float, pairs: int, device: str = "cuda") -
                         "max_reserved_gib": a["reserved_bytes"] / 2 ** 30,
                         "unet_view_forwards": a["fwd"],
                         "unet_graph_replays_captures": a["graph"],
-                        "controlnet_rows_seconds": a["controlnet"]}}
+                        "controlnet_rows_seconds_replays_captures": a["controlnet"]}}
 
     unwrap = tr.wrap_layers()
     prof = profile(activities=[ProfilerActivity.CPU]
